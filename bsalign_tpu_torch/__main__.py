@@ -1,0 +1,7 @@
+"""`python -m bsalign_tpu_torch align ...`."""
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

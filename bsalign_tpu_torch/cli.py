@@ -1,0 +1,131 @@
+"""bsalign-tpu-torch command line: `align` (port of bsalign_tpu.cli).
+
+Flags and output are those of `python -m bsalign_tpu.cli align`, byte for
+byte, plus `--device {cuda,cpu}`: `cuda` (the default) runs the banded DP in
+the hand-written CUDA kernel and raises when no CUDA device is present;
+`cpu` runs its plain PyTorch version. Input pairs are consecutive FASTA/Q
+records (q, t, q, t, ...).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List
+
+import torch
+
+from . import cigar as C
+from . import seqs as S
+from .constants import MODE_NAMES, parse_mode_list, roundup
+from .oracle import banded8 as B8
+from .utils import metrics
+
+
+def _fmt_pairwise(qtag, ttag, qseq, tseq, rs, cigars, line=0):
+    q, m, t = C.cigar2alnstr(qseq, tseq, rs, cigars, rs.aln)
+    head = (f"{qtag}\t{len(qseq)}\t+\t{rs.qb}\t{rs.qe}\t{ttag}\t{len(tseq)}"
+            f"\t+\t{rs.tb}\t{rs.te}\t{rs.score}\t{1.0 * rs.mat / rs.aln:.3f}"
+            f"\t{rs.mat}\t{rs.mis}\t{rs.ins}\t{rs.dele}")
+    if line <= 0:
+        return f"{head}\n{q}\n{m}\n{t}\n"
+    # -L > 0: wrap alnstr in 100-char chunks with running coordinates
+    # (main.c:349-363; the chunk width is hardcoded 100 upstream)
+    out = [head]
+    qn, tn = rs.qb, rs.tb
+    for b in range(0, rs.aln, 100):
+        e = min(b + 100, rs.aln)
+        qn += sum(1 for ch in q[b:e] if ch != "-")
+        tn += sum(1 for ch in t[b:e] if ch != "-")
+        out.append(f"{q[b:e]}\tQ[{qn}]")
+        out.append(m[b:e])
+        out.append(f"{t[b:e]}\tT[{tn}]")
+    return "\n".join(out) + "\n"
+
+
+def _read_pairs(paths: List[str]):
+    recs = []
+    for p in paths:
+        recs.extend(S.read_fastx(p))
+    recs = [r for r in recs if len(r.seq)]
+    return [(recs[i], recs[i + 1]) for i in range(0, len(recs) - 1, 2)]
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device for --device; `cuda` without a CUDA device raises."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(use --device cpu for the plain PyTorch path)")
+    return torch.device(name)
+
+
+def main_align(argv):
+    ap = argparse.ArgumentParser(prog="bsalign-tpu-torch align")
+    ap.add_argument("-m", default="overlap", help="global/extend/overlap")
+    ap.add_argument("-W", type=int, default=0, help="bandwidth, 0=full")
+    ap.add_argument("-M", type=int, default=2)
+    ap.add_argument("-X", type=int, default=6)
+    ap.add_argument("-O", type=int, default=3)
+    ap.add_argument("-E", type=int, default=2)
+    ap.add_argument("-Q", type=int, default=0)
+    ap.add_argument("-P", type=int, default=0)
+    ap.add_argument("-L", type=int, default=0)
+    ap.add_argument("-R", type=int, default=1)
+    ap.add_argument("-v", action="count", default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("inputs", nargs="+")
+    args = ap.parse_args(argv)
+    metrics.set_verbose(args.v)
+    mname = parse_mode_list(args.m)
+    if mname is None:
+        sys.stderr.write("bad -m mode list\n")
+        return 1
+    device = resolve_device(args.device)
+    mode = MODE_NAMES[mname]
+    mtx = B8.set_score_matrix(args.M, -args.X)
+    gaps = (-args.O, -args.E, -args.Q, -args.P)
+    pairs = _read_pairs(args.inputs)
+
+    from .align.pairwise import align_batch
+    # bucket by effective bandwidth (full-band pairs share a bucket only
+    # when their rounded qlen matches the reference's per-pair band)
+    buckets = {}
+    for idx, (q, t) in enumerate(pairs):
+        bw = args.W if args.W > 0 else roundup(len(q.seq), 128)
+        buckets.setdefault(bw, []).append(idx)
+    results = [None] * len(pairs)
+    for bw, idxs in buckets.items():
+        qs = [pairs[i][0].codes for i in idxs]
+        ts = [pairs[i][1].codes for i in idxs]
+        outs = align_batch(qs, ts, mode, bw, mtx, *gaps, device=device)
+        for i, r in zip(idxs, outs):
+            results[i] = r
+
+    sys.stdout.write("".join(
+        _fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg, args.L)
+        if rs.mat else ""
+        for (q, t), (rs, cg) in zip(pairs, results)))
+    return 0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        sys.stderr.write(
+            "Usage: bsalign-tpu-torch <align> [options] <fasta>\n")
+        return 1
+    cmd = argv[0].lower()
+    if cmd == "align":
+        rc = main_align(argv[1:])
+        if metrics.verbose():
+            metrics.report()
+        return rc
+    if cmd in ("edit", "poa", "cat"):
+        sys.stderr.write(f" -- '{cmd}' is not yet ported to "
+                         "bsalign_tpu_torch (use bsalign_tpu) --\n")
+        return 2
+    sys.stderr.write(f" -- Unknown command '{cmd}' --\n")
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,51 @@
+"""Build a shared library from sources on first use, keyed by their hash.
+
+The library lands in the package's git-ignored `build/` directory as
+`<name>-<hash>.so`. A file lock serialises concurrent builders (test
+workers, several processes of one run); the compiler writes to a
+temporary name that is renamed into place, so a reader never sees a
+half-written library. A failed build raises with the compiler's stderr.
+"""
+from __future__ import annotations
+
+import fcntl
+import hashlib
+import os
+import subprocess
+import time
+from typing import List, Sequence, Tuple
+
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build")
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def build_shared(name: str, sources: Sequence[str],
+                 compile_cmd: List[str]) -> Tuple[str, float]:
+    """Compile `sources` with `compile_cmd + sources + ["-o", out]` unless a
+    library built from the same sources and command exists. Returns the
+    library's path and the seconds spent building (0.0 when cached)."""
+    h = hashlib.sha256(" ".join(compile_cmd).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out, 0.0
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return out, 0.0
+        tmp = f"{out}.{os.getpid()}.tmp"
+        t0 = time.time()
+        r = subprocess.run(compile_cmd + list(sources) + ["-o", tmp],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise BuildError(f"building {name} failed ({' '.join(compile_cmd)}):"
+                             f"\n{r.stderr}")
+        os.replace(tmp, out)
+        return out, time.time() - t0

@@ -1,0 +1,146 @@
+"""The hand-written CUDA banded-8 kernel against its plain PyTorch version,
+on one CUDA device. Every test here needs the card and nvcc: it carries the
+`cuda` marker and skips without a CUDA device. The file imports no jax, so
+it runs on the GPU machine:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+All comparisons are exact: the arithmetic is integer.
+"""
+import numpy as np
+import pytest
+import torch
+
+from bsalign_tpu_torch import cli as CLI
+from bsalign_tpu_torch.align import pairwise as P
+from bsalign_tpu_torch.constants import MODE_EXTEND, MODE_GLOBAL, MODE_OVERLAP
+from bsalign_tpu_torch.ops import banded8 as K
+from bsalign_tpu_torch.oracle import banded8 as O
+
+from .util import gen_pair
+
+pytestmark = pytest.mark.cuda
+
+AFFINE = (-3, -2, 0, 0)   # piecewise 1
+LINEAR = (0, -4, 0, 0)    # piecewise 0
+NT_MAX, NT_MIN = 2, -6
+
+# (mode, gaps, W, pair lengths, error rate, seed)
+CASES = [
+    (MODE_GLOBAL, LINEAR, 1, (90, 120, 150), 0.12, 1),
+    (MODE_GLOBAL, AFFINE, 2, (90, 160, 220), 0.12, 2),
+    (MODE_OVERLAP, AFFINE, 8, (150, 200, 240), 0.12, 5),
+    (MODE_EXTEND, AFFINE, 1, (90, 100, 120), 0.12, 8),
+    (MODE_EXTEND, LINEAR, 2, (100, 130, 170), 0.25, 12),
+    (MODE_GLOBAL, AFFINE, 8, (150, 200, 250, 300), 0.25, 10),
+    (MODE_OVERLAP, AFFINE, 40, (600, 600, 620), 0.10, 13),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda", 0)
+
+
+def _pairs(lens, err, seed):
+    rng = np.random.default_rng(seed)
+    return [list(x) for x in zip(*(gen_pair(rng, L, err) for L in lens))]
+
+
+def _operands(qs, ts, mode, gaps, W):
+    bw = W * 16
+    pw = O.get_piecewise(*gaps, bw)
+    qpad, qlens, tpad, tlens, rby, T = P._pack_batch(qs, ts, bw)
+    us, es, q0, ub, _ = P._init_state(mode, bw, pw, NT_MAX, NT_MIN, *gaps,
+                                      len(qs))
+    mtx5 = P._mtx5(O.set_score_matrix(NT_MAX, NT_MIN))
+    return pw, T, (qpad, qlens, tpad, tlens, mtx5, rby, us, es, q0, ub)
+
+
+def _kernel_and_plain(g, args, device):
+    from bsalign_tpu_torch.ops import _cuda
+    st = K.state_from_numpy(*args, T=g.T, device=device)
+    rk = _cuda.banded8_codes(g, st)
+    rp = K.forward_plain(g, st)
+    torch.cuda.synchronize()
+    return rk, rp
+
+
+def _assert_same(rk, rp):
+    for fld in ("codes", "begs", "fin_ub", "fin_reg"):
+        assert torch.equal(rk[fld], rp[fld]), fld
+    assert len(rk["fin_planes"]) == len(rp["fin_planes"])
+    for a, c in zip(rk["fin_planes"], rp["fin_planes"]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_kernel_matches_plain(case, cuda_device):
+    mode, gaps, W, lens, err, seed = CASES[case]
+    qs, ts = _pairs(lens, err, seed)
+    pw, T, args = _operands(qs, ts, mode, gaps, W)
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, True)
+    _assert_same(*_kernel_and_plain(g, args, cuda_device))
+
+
+@pytest.mark.parametrize("gaps", [AFFINE, LINEAR])
+def test_kernel_full_band_reset_matches_plain(gaps, cuda_device):
+    """qlen >> tlen at band 16: the global steering moves the band past its
+    width, so the band is fully reset."""
+    rng = np.random.default_rng(21)
+    qs = [rng.integers(0, 4, L).astype(np.uint8) for L in (800, 900, 700)]
+    ts = [rng.integers(0, 4, L).astype(np.uint8) for L in (40, 45, 30)]
+    pw, T, args = _operands(qs, ts, MODE_GLOBAL, gaps, 1)
+    g = K.Geometry(T, 1, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN, True)
+    rk, rp = _kernel_and_plain(g, args, cuda_device)
+    begs = rk["begs"].cpu().numpy()
+    assert max(np.diff(begs[:40, b], prepend=0).max() for b in range(3)) >= 16
+    _assert_same(rk, rp)
+
+
+def test_make_forward_on_cuda_launches_and_matches_cpu(cuda_device):
+    """The wrapper on a CUDA device launches the kernel (counted once per
+    launch) and gives the CPU path's ForwardResult."""
+    from bsalign_tpu_torch.ops import _cuda
+    mode, gaps, W, lens, err, seed = CASES[2]
+    qs, ts = _pairs(lens, err, seed)
+    pw, T, args = _operands(qs, ts, mode, gaps, W)
+    geom = (T, W, mode, pw, *gaps, NT_MAX, NT_MIN)
+    before = _cuda.launches
+    rg = K.make_forward(*geom, codes=True, device=cuda_device)(*args)
+    assert _cuda.launches == before + 1
+    rc = K.make_forward(*geom, codes=True, device="cpu")(*args)
+    assert _cuda.launches == before + 1
+    for fld in ("score", "qe", "te", "final_us", "final_ubegs", "final_rbeg",
+                "final_reg"):
+        assert torch.equal(getattr(rg, fld), getattr(rc, fld)), fld
+    assert torch.equal(rg.planes.codes, rc.planes.codes)
+    assert torch.equal(rg.planes.begs, rc.planes.begs)
+
+
+def test_kernel_wrapper_checks_operands(cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    mode, gaps, W, lens, err, seed = CASES[1]
+    qs, ts = _pairs(lens, err, seed)
+    pw, T, args = _operands(qs, ts, mode, gaps, W)
+    st = K.state_from_numpy(*args, T=T, device=cuda_device)
+    st = st._replace(qlen=st.qlen.long())
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, True)
+    before = _cuda.launches
+    with pytest.raises(ValueError, match="qlen"):
+        _cuda.banded8_codes(g, st)
+    assert _cuda.launches == before
+
+
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
+def test_align_batch_cuda_matches_cpu(mode, cuda_device):
+    qs, ts = _pairs((150, 220, 300, 180), 0.12, 30 + mode)
+    mtx = O.set_score_matrix(NT_MAX, NT_MIN)
+
+    def tsv(device):
+        out = P.align_batch(qs, ts, mode, 64, mtx, *AFFINE, device=device)
+        return "".join(CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b], rs, cg)
+                       for b, (rs, cg) in enumerate(out))
+    assert tsv(cuda_device) == tsv("cpu")

@@ -1,0 +1,103 @@
+"""Package boundaries of bsalign_tpu_torch: it runs without jax and without
+bsalign_tpu, never drops from CUDA to the CPU, and its CPU path never
+launches the CUDA kernel."""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bsalign_tpu_torch import cli
+from bsalign_tpu_torch.ops import _cuda
+from bsalign_tpu_torch.ops import banded8 as K
+
+from .util import gen_pair, write_pairs_fasta
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from bsalign_tpu_torch.align.pairwise import align_batch
+from bsalign_tpu_torch.constants import MODE_OVERLAP
+from bsalign_tpu_torch.ops import _cuda
+from bsalign_tpu_torch.oracle import banded8 as O
+rng = np.random.default_rng(5)
+ts = [rng.integers(0, 4, 120).astype(np.uint8) for _ in range(3)]
+qs = [t[5:].copy() for t in ts]
+out = align_batch(qs, ts, MODE_OVERLAP, 32, O.set_score_matrix(2, -6),
+                  -3, -2, 0, 0, device="cpu")
+print(json.dumps({"mods": sorted(m for m in sys.modules
+                                 if m.split(".")[0] in ("jax", "bsalign_tpu")),
+                  "launches": _cuda.launches,
+                  "mat": [rs.mat for rs, _ in out]}))
+"""
+
+
+def test_cpu_path_imports_neither_jax_nor_bsalign_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["mods"] == []
+    assert res["launches"] == 0
+    assert res["mat"] == [115, 115, 115]
+
+
+def test_cuda_device_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rng = np.random.default_rng(2)
+    path = tmp_path / "p.fa"
+    write_pairs_fasta(str(path), [gen_pair(rng, 60, 0.1)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["align", str(path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["align", "--device", "cuda", str(path)])
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """forward_raw takes the plain version because its tensors lie on the
+    CPU; the kernel's launcher refuses CPU tensors before any build or
+    launch."""
+    rng = np.random.default_rng(3)
+    q, t = gen_pair(rng, 50, 0.1)
+    from bsalign_tpu_torch.align import pairwise as P
+    from bsalign_tpu_torch.oracle import banded8 as O
+    qpad, qlens, tpad, tlens, rby, T = P._pack_batch([q], [t], 32)
+    us, es, qs, ub, _ = P._init_state(1, 32, 1, 2, -6, -3, -2, 0, 0, 1)
+    st = K.state_from_numpy(qpad, qlens, tpad, tlens,
+                            P._mtx5(O.set_score_matrix(2, -6)), rby, us, es,
+                            qs, ub, T=T, device="cpu")
+    g = K.Geometry(T, 2, 1, 1, -3, -2, 0, 0, 2, -6, True)
+    before = _cuda.launches
+    raw, plain = K.forward_raw(g, st), K.forward_plain(g, st)
+    for fld in ("codes", "begs", "fin_ub", "fin_reg"):
+        assert torch.equal(raw[fld], plain[fld]), fld
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _cuda.banded8_codes(g, st)
+    assert _cuda.launches == before
+
+
+def test_unported_commands_exit_nonzero(capsys):
+    for cmd in ("edit", "poa", "cat"):
+        assert cli.main([cmd, "x.fa"]) != 0
+        assert "not yet ported" in capsys.readouterr().err
+
+
+def test_two_piece_gaps_not_yet_ported():
+    from bsalign_tpu_torch.align import pairwise as P
+    from bsalign_tpu_torch.oracle import banded8 as O
+    rng = np.random.default_rng(4)
+    q, t = gen_pair(rng, 80, 0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        P.align_batch([q], [t], 0, 64, O.set_score_matrix(2, -6),
+                      -4, -2, -24, -1, device="cpu")
