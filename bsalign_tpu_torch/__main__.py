@@ -1,4 +1,4 @@
-"""`python -m bsalign_tpu_torch align ...`."""
+"""`python -m bsalign_tpu_torch align|edit ...`."""
 import sys
 
 from .cli import main

@@ -1,10 +1,11 @@
-"""bsalign-tpu-torch command line: `align` (port of bsalign_tpu.cli).
+"""bsalign-tpu-torch command line: `align` and `edit` (port of
+bsalign_tpu.cli).
 
-Flags and output are those of `python -m bsalign_tpu.cli align`, byte for
-byte, plus `--device {cuda,cpu}`: `cuda` (the default) runs the banded DP in
-the hand-written CUDA kernel and raises when no CUDA device is present;
-`cpu` runs its plain PyTorch version. Input pairs are consecutive FASTA/Q
-records (q, t, q, t, ...).
+Flags and output are those of `python -m bsalign_tpu.cli align` and
+`... edit`, byte for byte, plus `--device {cuda,cpu}`: `cuda` (the default)
+runs the DP in the hand-written CUDA kernels and raises when no CUDA device
+is present; `cpu` runs their plain PyTorch versions. Input pairs are
+consecutive FASTA/Q records (q, t, q, t, ...).
 """
 from __future__ import annotations
 
@@ -107,19 +108,56 @@ def main_align(argv):
     return 0
 
 
+def main_edit(argv):
+    ap = argparse.ArgumentParser(prog="bsalign-tpu-torch edit")
+    ap.add_argument("-m", default="global", help="global/extend/overlap/kmer")
+    ap.add_argument("-W", type=int, default=0)
+    ap.add_argument("-k", type=int, default=13)
+    ap.add_argument("-R", type=int, default=1)
+    ap.add_argument("-v", action="count", default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("inputs", nargs="+")
+    args = ap.parse_args(argv)
+    metrics.set_verbose(args.v)
+    mode_name = parse_mode_list(args.m, ("global", "overlap", "extend",
+                                         "kmer"))
+    if mode_name is None:
+        sys.stderr.write("bad -m mode list\n")
+        return 1
+    device = resolve_device(args.device)
+    W = args.W
+    if mode_name == "overlap" and W:
+        sys.stderr.write(" ** disable band in bsalign-edit's overlap mode ** \n")
+        W = 0
+    pairs = _read_pairs(args.inputs)
+
+    from .align.editdist import edit_batch, kmer_edit_batch
+    qs = [p[0].codes for p in pairs]
+    ts = [p[1].codes for p in pairs]
+    if mode_name == "kmer":
+        results = kmer_edit_batch(args.k, qs, ts, device=device)
+    else:
+        results = edit_batch(qs, ts, MODE_NAMES[mode_name], W, device=device)
+    sys.stdout.write("".join(
+        _fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg)
+        if rs.mat else ""
+        for (q, t), (rs, cg) in zip(pairs, results)))
+    return 0
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         sys.stderr.write(
-            "Usage: bsalign-tpu-torch <align> [options] <fasta>\n")
+            "Usage: bsalign-tpu-torch <align|edit> [options] <fasta>\n")
         return 1
     cmd = argv[0].lower()
-    if cmd == "align":
-        rc = main_align(argv[1:])
+    if cmd in ("align", "edit"):
+        rc = (main_align if cmd == "align" else main_edit)(argv[1:])
         if metrics.verbose():
             metrics.report()
         return rc
-    if cmd in ("edit", "poa", "cat"):
+    if cmd in ("poa", "cat"):
         sys.stderr.write(f" -- '{cmd}' is not yet ported to "
                          "bsalign_tpu_torch (use bsalign_tpu) --\n")
         return 2

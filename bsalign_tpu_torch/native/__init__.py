@@ -1,10 +1,10 @@
 """Host walker of the packed traceback codes, bound with ctypes.
 
-The walker is the JAX package's own C++ (`bsalign_tpu/native/rowops.cpp`,
-`bsa_decode_codes`), compiled here from that file as a source: one source
-keeps the two packages' CIGARs byte-identical. The file is read, never
-imported, so this package stays free of JAX. The library is built with
-`g++ -O3 -shared -fPIC` into this package's build directory on first use.
+The walker is `rowops.cpp` in this directory (`bsa_decode_codes`), the
+port's own copy of the JAX package's host C++, kept unchanged so that the
+two packages' CIGARs stay byte-identical. The library is built with
+`g++ -O3 -fPIC` and linked with `g++ -shared` into this package's build
+directory on first use.
 """
 from __future__ import annotations
 
@@ -14,8 +14,7 @@ import threading
 
 from ..utils.build import build_shared
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "bsalign_tpu", "native", "rowops.cpp")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rowops.cpp")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -30,7 +29,8 @@ def rowops_lib():
     with _LOCK:
         if _LIB is None:
             path, build_seconds = build_shared(
-                "rowops", [SOURCE], ["g++", "-O3", "-shared", "-fPIC"])
+                "rowops", [SOURCE], ["g++", "-O3", "-fPIC"],
+                ["g++", "-shared"])
             lib = ctypes.CDLL(path)
             lib.bsa_decode_codes.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p,
@@ -41,4 +41,3 @@ def rowops_lib():
             lib.bsa_decode_codes.restype = ctypes.c_long
             _LIB = lib
     return _LIB
-

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a into a shared library with a
-plain C interface, in the package's git-ignored build directory, on first
-use and keyed by a hash of the sources; the library is loaded with ctypes.
+The sources are compiled with nvcc for sm_90a, one nvcc process per source,
+all started together, and linked into one shared library with a plain C
+interface, in the package's git-ignored build directory, on first use and
+keyed by a hash of the sources; the library is loaded with ctypes.
 Kernels launch on PyTorch's current stream and never synchronise; each C
 entry point returns cudaGetLastError(), and a non-zero code raises.
 """
@@ -23,10 +24,13 @@ WS = WORDSIZE
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 PAIRS_PER_BLOCK = 2   # one warp per block: 256 pairs spread over 128 SMs
 
+EDIT_MAX_NW = 512     # widest edit band the kernel is built for (16384 bits)
+
 launches = 0          # kernel launches of bsa_banded8_codes in this process
+edit_launches = 0     # kernel launches of bsa_edit_rows in this process
 build_seconds = 0.0
 _LIB = None
 _LOCK = threading.Lock()
@@ -48,20 +52,23 @@ def lib():
     with _LOCK:
         if _LIB is None:
             srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-            path, build_seconds = build_shared("kernels", srcs,
-                                               [_nvcc()] + NVCC_FLAGS)
+            path, build_seconds = build_shared(
+                "kernels", srcs, [_nvcc()] + NVCC_FLAGS, [_nvcc(), "-shared"])
             so = ctypes.CDLL(path)
             so.bsa_banded8_codes.argtypes = \
                 [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
             so.bsa_banded8_codes.restype = ctypes.c_int
+            so.bsa_edit_rows.argtypes = \
+                [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            so.bsa_edit_rows.restype = ctypes.c_int
             _LIB = so
     return _LIB
 
 
-def _check(name, t, shape):
+def _check(name, t, shape, kernel="banded8"):
     if t.device.type != "cuda" or t.dtype != torch.int32 \
             or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"banded8 kernel: {name} must be a contiguous int32 "
+        raise ValueError(f"{kernel} kernel: {name} must be a contiguous int32 "
                          f"CUDA tensor of shape {tuple(shape)}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
@@ -123,6 +130,44 @@ def banded8_codes(g, st):
     return dict(codes=codes, begs=begs,
                 fin_planes=[t for t in (fin_us, fin_es) if t is not None],
                 fin_ub=fin_ub, fin_reg=fin_reg)
+
+
+def edit_rows(g, ops):
+    """Launch the edit kernel for geometry g (ops.edit.Geometry) on the
+    operands ops (ops.edit.Operands, on one CUDA device). Returns the raw
+    outputs as device tensors: pm, pp, sbeg, fin_pm, fin_pp, scal."""
+    global edit_launches
+    if g.NW > EDIT_MAX_NW:
+        raise NotImplementedError(
+            f"edit band of {g.NW} words ({g.bw} bits) exceeds the kernel's "
+            f"limit of {EDIT_MAX_NW} words ({EDIT_MAX_NW * 32} bits)")
+    _, B, NWQ = ops.qeq.shape
+    T, NW = g.T, g.NW
+    _check("qeq", ops.qeq, (4, B, NWQ), "edit")
+    _check("tseq", ops.tseq, (B, T), "edit")
+    for name in ("qlen", "tlen"):
+        _check(name, getattr(ops, name), (B,), "edit")
+    for name in ("rbegs", "movxs"):
+        _check(name, getattr(ops, name), (T, B), "edit")
+    dev = ops.qeq.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    out = dict(pm=empty(B, T, NW), pp=empty(B, T, NW), sbeg=empty(B, T),
+               fin_pm=empty(B, NW), fin_pp=empty(B, NW), scal=empty(B, 4))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().bsa_edit_rows(
+            ops.qeq.data_ptr(), ops.qlen.data_ptr(), ops.tseq.data_ptr(),
+            ops.tlen.data_ptr(), ops.rbegs.data_ptr(), ops.movxs.data_ptr(),
+            *(out[k].data_ptr() for k in ("pm", "pp", "sbeg", "fin_pm",
+                                          "fin_pp", "scal")),
+            B, T, NW, NWQ, mode_type(g.mode), stream)
+    if rc != 0:
+        raise RuntimeError(f"edit kernel launch failed: CUDA error {rc}")
+    edit_launches += 1
+    return out
 
 
 def to_host_async(raw, inputs):

@@ -23,12 +23,15 @@ class BuildError(RuntimeError):
     pass
 
 
-def build_shared(name: str, sources: Sequence[str],
-                 compile_cmd: List[str]) -> Tuple[str, float]:
-    """Compile `sources` with `compile_cmd + sources + ["-o", out]` unless a
-    library built from the same sources and command exists. Returns the
-    library's path and the seconds spent building (0.0 when cached)."""
-    h = hashlib.sha256(" ".join(compile_cmd).encode())
+def build_shared(name: str, sources: Sequence[str], compile_cmd: List[str],
+                 link_cmd: List[str]) -> Tuple[str, float]:
+    """Build `sources` into one shared library unless a library built from
+    the same sources and commands exists: each source is compiled to an
+    object by `compile_cmd + ["-c", src, "-o", obj]`, one compiler process
+    per source, all started together, and `link_cmd + objects + ["-o",
+    out]` links them. Returns the library's path and the seconds spent
+    building (0.0 when cached)."""
+    h = hashlib.sha256(" ".join(compile_cmd + link_cmd).encode())
     for src in sources:
         with open(src, "rb") as f:
             h.update(f.read())
@@ -41,11 +44,26 @@ def build_shared(name: str, sources: Sequence[str],
         if os.path.exists(out):
             return out, 0.0
         tmp = f"{out}.{os.getpid()}.tmp"
+        objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
         t0 = time.time()
-        r = subprocess.run(compile_cmd + list(sources) + ["-o", tmp],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise BuildError(f"building {name} failed ({' '.join(compile_cmd)}):"
-                             f"\n{r.stderr}")
+        try:
+            _run([compile_cmd + ["-c", src, "-o", obj]
+                  for src, obj in zip(sources, objs)], name)
+            _run([link_cmd + objs + ["-o", tmp]], name)
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         os.replace(tmp, out)
         return out, time.time() - t0
+
+
+def _run(cmds: List[List[str]], name: str) -> None:
+    """Run the commands as processes started together; raise on the first
+    that failed, with its stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for c, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise BuildError(f"building {name} failed ({' '.join(c)}):\n{err}")

@@ -1,10 +1,11 @@
 """Telemetry: cell-updates/s counters and leveled logging (port of
 bsalign_tpu.utils.metrics without its profiler hook).
 
-The driver reports work through a process-wide registry under the same
+The drivers report work through a process-wide registry under the same
 counter names as the JAX package: `banded8_fwd` (DP cells, launch to
-results on the host), `e2e_fetch` (bytes copied device to host) and
-`e2e_traceback` (pairs walked). Verbosity follows the CLI's repeated -v
+results on the host), `e2e_fetch` (bytes copied device to host),
+`e2e_traceback` (pairs walked) and `edit_fwd` (edit DP cells, sum of
+target lengths x band, operands to results on the host). Verbosity follows the CLI's repeated -v
 (BSA_VERBOSE overrides).
 """
 from __future__ import annotations

@@ -6,23 +6,37 @@
 Phases, in order; any failure exits non-zero:
 
 1. Environment: the card's name and power limit, then the build of the
-   banded-8 CUDA kernel (nvcc, sm_90a) and of the host codes walker (g++),
-   with their build seconds.
-2. Kernel against its plain PyTorch version, both on the card, on seeded
-   pairs at 10% error: codes, begs, score/qe/te and the final state must
-   agree bit for bit (tolerance 0: the arithmetic is integer).
-3. The main path: `align_batch` on 512 pairs x 2 kb, global, band 128,
-   -M 2 -X 6 -O 3 -E 2. The kernel's launch count over that run must be at
-   least 2 (two DEVICE_CHUNKs), and the TSV of the first 32 pairs must equal
-   the port's CPU path byte for byte. Prints kernel time, cells/s and
-   end-to-end pairs/s.
+   CUDA kernels (csrc/*.cu: banded-8 and edit, one nvcc per source started
+   together, sm_90a, linked into one library) and of the host codes walker
+   (g++), with their build seconds.
+2. Banded-8 kernel against its plain PyTorch version, both on the card, on
+   seeded pairs at 10% error: codes, begs, score/qe/te and the final state
+   must agree bit for bit (tolerance 0: the arithmetic is integer).
+3. The align main path: `align_batch` on 512 pairs x 2 kb, global, band
+   128, -M 2 -X 6 -O 3 -E 2. The banded-8 kernel's launch count over that
+   run must be at least 2 (two DEVICE_CHUNKs), and the TSV of the first 32
+   pairs must equal the port's CPU path byte for byte. Prints kernel time,
+   cells/s and end-to-end pairs/s.
 4. Band 2048: 16 pairs x 2 kb at the CLI defaults (overlap, band
    roundup(qlen, 128)), checked against the CPU path on 2 pairs.
+5. Edit kernel against its plain PyTorch version, both on the card, on
+   seeded pairs at 10% error: pm, pp and sbeg on rows below each pair's
+   tlen, and the final planes, smin, ry, final sbeg and global score, with
+   tolerance 0. Cases: 64 x 2 kb global full band (NW 64), global band 128
+   with target lengths spread over 0.5-1.5 x 2 kb, overlap, extend; 4 x
+   5 kb global full band (NW 160); a hand-made trajectory whose band jumps
+   past its width (full reset).
+6. The edit main path: `edit_batch` on 512 pairs x 2 kb, global, -W 0. The
+   edit kernel's launch count over that run must be at least 2, and the TSV
+   of the first 32 pairs must equal the CPU path. Then the same pairs at
+   -W 128 and `kmer_edit_batch` (k 13) on 64 pairs x 10 kb, each checked
+   against the CPU path on 4 pairs.
 
-The line before the last is a JSON object with the kernel's launches, error
-and times; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device, or without the repository beside it, the script fails and prints no
-result. It imports neither jax nor bsalign_tpu.
+The line before the last is a JSON object with each kernel's launches on
+its main path, error, times and bound; the last line is {"ok": true,
+"device": {...}}. Without a CUDA device, or without the repository beside
+it, the script fails and prints no result. It imports neither jax nor
+bsalign_tpu.
 """
 from __future__ import annotations
 
@@ -36,6 +50,22 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
+# Bounds: the least time for a kernel's work on one H100 SXM, the larger of
+# its bytes (each input read once, each output written once) over the
+# memory rate and its operations over the float32 rate outside the tensor
+# cores (the data sheet's 67 TFLOP/s, counting an FMA as two). The kernels
+# do 32-bit integer and bitwise work, which the card issues no faster, so
+# the operation bound is a lower bound. Operations are counted from the
+# kernels' source per unit of work this run's data needs:
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+# banded-8, piecewise 1, codes: per DP cell about 15 ops in pass 1, 28 in
+# pass 2, 20 in the code pass and 2 for the query score (saturating int8
+# arithmetic as add + min + max)
+BANDED8_OPS_PER_CELL = 65
+# edit: per plane word and row, 3 for the Eq window, 21 for the Myers step
+# with the carry, 3 for the one-bit shifts
+EDIT_OPS_PER_WORD_ROW = 27
 
 
 def fail(msg: str) -> int:
@@ -69,6 +99,47 @@ def gen_pairs(n, length, err=0.10, seed=0):
     return qs, ts
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by, text) for nbytes moved and ops operations."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / OPS_PER_S * 1e3
+    text = (f"bytes {nbytes / 1e6:.4g} MB in {t_b:.4f} ms, operations "
+            f"{ops / 1e9:.4g} G in {t_o:.4f} ms")
+    return (t_b, "bytes", text) if t_b >= t_o else (t_o, "operations", text)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def edit_bytes(g, ops):
+    """Bytes one edit launch must move for this data: of the inputs, qlen
+    and tlen, tseq on rows below each pair's tlen, the query words that
+    those rows' windows reach (the target base's plane, from word
+    rbeg // 32 on, NW words plus one when rbeg % 32 is not 0), and rbegs
+    and movxs on those rows unless they are all 0 (the full band, which
+    needs no trajectory); of the outputs, pm, pp and sbeg on rows below
+    tlen, and the final planes and scal of every pair."""
+    tlen = ops.tlen.cpu().numpy()
+    B, T = ops.tseq.shape
+    NW, NWQ = g.NW, ops.qeq.shape[2]
+    live = np.arange(T)[:, None] < tlen[None, :]             # [T, B]
+    rows = int(live.sum())
+    tb = ops.tseq.cpu().numpy().T
+    plane = np.where((tb >= 1) & (tb <= 3), tb, 0)[live]
+    rb = ops.rbegs.cpu().numpy()
+    lo = np.clip(rb >> 5, 0, NWQ)[live]
+    hi = np.clip((rb >> 5) + NW + ((rb & 31) != 0), 0, NWQ)[live]
+    pair = np.broadcast_to(np.arange(B), (T, B))[live]
+    cover = np.zeros((4, B, NWQ + 1), np.int64)
+    np.add.at(cover, (plane, pair, lo), 1)
+    np.add.at(cover, (plane, pair, hi), -1)
+    qeq_words = int((np.cumsum(cover, 2)[..., :NWQ] > 0).sum())
+    traj = rb[live].any() or ops.movxs.cpu().numpy()[live].any()
+    ins = 4 * (qeq_words + rows + 2 * B) + (8 * rows if traj else 0)
+    return ins + rows * (8 * NW + 4) + B * (8 * NW + 16)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -78,11 +149,13 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from bsalign_tpu_torch import cli as CLI
     from bsalign_tpu_torch import native
+    from bsalign_tpu_torch.align import editdist as D
     from bsalign_tpu_torch.align import pairwise as P
     from bsalign_tpu_torch.constants import (MODE_GLOBAL, MODE_OVERLAP,
                                              MODE_EXTEND, roundup)
     from bsalign_tpu_torch.ops import _cuda
     from bsalign_tpu_torch.ops import banded8 as K
+    from bsalign_tpu_torch.ops import edit as KE
     from bsalign_tpu_torch.oracle import banded8 as O
     from bsalign_tpu_torch.utils import metrics
 
@@ -101,7 +174,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     _cuda.lib()
     native.rowops_lib()
-    print(f"build: kernel {_cuda.build_seconds:.1f}s (nvcc sm_90a), "
+    print(f"build: kernels {_cuda.build_seconds:.1f}s (nvcc sm_90a), "
           f"walker {native.build_seconds:.1f}s (g++)")
 
     mtx = O.set_score_matrix(2, -6)
@@ -210,14 +283,21 @@ def main() -> int:
                     + "; ".join(bad))
     kernel_ms = timed_ms(lambda: _cuda.banded8_codes(g_main, st_main), 5)
     cells = float(sum(len(t) for t in ts[:P.DEVICE_CHUNK])) * bw
+    rk = _cuda.banded8_codes(g_main, st_main)
+    b8_bound_ms, b8_bound_by, b8_bound_text = bound(
+        nbytes(*st_main) + nbytes(rk["codes"], rk["begs"], rk["fin_ub"],
+                                  rk["fin_reg"], *rk["fin_planes"]),
+        cells * BANDED8_OPS_PER_CELL)
+    del rk
     print(f"phase3 kernel: {kernel_ms:.3f} ms per launch of "
           f"{P.DEVICE_CHUNK} pairs (T={g_main.T}, W={g_main.W}), "
           f"{cells / (kernel_ms / 1e3):.4g} cells/s; plain on the card "
-          f"{plain_ms:.1f} ms")
+          f"{plain_ms:.1f} ms; bound {b8_bound_ms:.4f} ms by {b8_bound_by} "
+          f"({b8_bound_text})")
 
     torch.cuda.synchronize()
     metrics.reset()
-    _cuda.launches = 0
+    _cuda.launches = _cuda.edit_launches = 0
     t0 = time.time()
     res_gpu = P.align_batch(qs, ts, MODE_GLOBAL, bw, mtx, *gaps, device=dev)
     torch.cuda.synchronize()
@@ -280,6 +360,189 @@ def main() -> int:
         return fail("phase 4: band-2048 TSV differs from the CPU path")
     print(f"phase4 band 2048 pairs {check} == CPU path")
 
+    # ---- phase 5: the edit kernel against its plain version ----
+    def edit_operands(qs, ts, mode, bw, banded, traj=None):
+        T, _, (qeq, qlens, tpad, tlens, rbegs, movxs) = D._pack_bucket(
+            qs, ts, bw, banded)
+        if traj is not None:
+            rbegs, movxs = traj(rbegs, tlens, qlens, T)
+        g = KE.Geometry(T, bw // 32, mode)
+        ops = KE.operands_from_numpy(qeq, qlens, tpad, tlens, rbegs, movxs,
+                                     T=T, device=dev)
+        return g, ops
+
+    def edit_compare(g, ops):
+        """Kernel vs plain on the same device tensors: rows < tlen of pm,
+        pp and sbeg, the final planes and scal whole, and the global
+        score. Returns max |diff|, the disagreements and the plain
+        version's milliseconds."""
+        rk = _cuda.edit_rows(g, ops)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rp = KE.forward_plain(g, ops)
+        e1.record()
+        torch.cuda.synchronize()
+        pairs = []
+        for b, n in enumerate(ops.tlen.tolist()):
+            pairs += [(f"{f}[{b}]", rk[f][b, :n], rp[f][b, :n])
+                      for f in ("pm", "pp", "sbeg")]
+        pairs += [(f, rk[f], rp[f]) for f in ("fin_pm", "fin_pp", "scal")]
+        pairs.append(("final_score", KE.final_score(g, rk, ops.qlen),
+                      KE.final_score(g, rp, ops.qlen)))
+        worst, bad = 0, []
+        for nm, a, b in pairs:
+            d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            worst = max(worst, d)
+            if d:
+                bad.append(f"{nm} max|diff| {d}")
+        return worst, bad, e0.elapsed_time(e1)
+
+    def spread_targets(n, seed):
+        """2 kb queries with targets cut or extended to 0.5-1.5 x 2 kb."""
+        qs, ts = gen_pairs(n, 2000, 0.10, seed)
+        rng = np.random.default_rng(seed)
+        out = []
+        for t in ts:
+            tl = int(2000 * (0.5 + rng.random()))
+            out.append(t[:tl] if tl <= len(t) else np.concatenate(
+                [t, rng.integers(0, 4, tl - len(t)).astype(np.uint8)]))
+        return qs, out
+
+    def jumpy(rbegs, tlens, qlens, T):
+        """Band starts that jump past the band's width every 37 rows."""
+        r = np.zeros_like(rbegs)
+        for b, tl in enumerate(tlens):
+            cur = 0
+            for i in range(int(tl)):
+                cur += 64 + 7 * (i % 3) if i % 37 == 5 else (i % 11 == 3) * 13
+                r[i, b] = min(cur, int(qlens[b]) - 8)
+        m = np.diff(r, axis=0, prepend=0).astype(np.int32)
+        for b, tl in enumerate(tlens):
+            m[int(tl):, b] = 0
+        return r, m
+
+    rng = np.random.default_rng(SEED + 16)
+    cases5 = [
+        ("(a) 64x2kb global full band", gen_pairs(64, 2000, 0.10, SEED + 11),
+         MODE_GLOBAL, 2048, False, None),
+        ("(b) 64x2kb global -W 128, targets 0.5-1.5x",
+         spread_targets(64, SEED + 12), MODE_GLOBAL, 128, True, None),
+        ("(c) 64x2kb overlap", gen_pairs(64, 2000, 0.10, SEED + 13),
+         MODE_OVERLAP, 2048, False, None),
+        ("(d) 64x2kb extend", gen_pairs(64, 2000, 0.10, SEED + 14),
+         MODE_EXTEND, 2048, False, None),
+        ("(e) 4x5kb global full band", gen_pairs(4, 5000, 0.10, SEED + 15),
+         MODE_GLOBAL, 5120, False, None),
+        ("(f) 2 pairs, band 64, movx >= band",
+         ([rng.integers(0, 4, L).astype(np.uint8) for L in (1500, 1200)],
+          [rng.integers(0, 4, L).astype(np.uint8) for L in (200, 150)]),
+         MODE_GLOBAL, 64, True, jumpy),
+    ]
+    edit_err = 0
+    for label, (qs5, ts5), mode, bw5, banded, traj in cases5:
+        g, ops = edit_operands(qs5, ts5, mode, bw5, banded, traj)
+        err, bad, p_ms = edit_compare(g, ops)
+        edit_err = max(edit_err, err)
+        k_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 5)
+        extra = ""
+        if traj is not None:
+            extra = f", max movx {int(ops.movxs.max())}"
+            if int(ops.movxs.max()) < bw5:
+                return fail(f"phase 5 {label}: no row moves past the band")
+        print(f"phase5 {label}: NW={g.NW} T={g.T}{extra} max_abs_err={err}; "
+              f"kernel {k_ms:.3f} ms, plain on the card {p_ms:.1f} ms")
+        if bad:
+            return fail(f"phase 5 {label}: kernel disagrees with plain: "
+                        + "; ".join(bad[:8]))
+
+    # ---- phase 6: the edit main path ----
+    qs, ts = gen_pairs(512, 2000, 0.10, SEED + 20)
+    main_idx = [i for i, (q, t) in enumerate(zip(qs, ts))
+                if roundup(roundup(len(q), 64), 256) == 2048][:D.DEVICE_CHUNK]
+    g_e, ops_e = edit_operands([qs[i] for i in main_idx],
+                               [ts[i] for i in main_idx], MODE_GLOBAL, 2048,
+                               False)
+    err, bad, edit_plain_ms = edit_compare(g_e, ops_e)
+    edit_err = max(edit_err, err)
+    if bad:
+        return fail("phase 6 chunk: kernel disagrees with plain: "
+                    + "; ".join(bad[:8]))
+    edit_ms = timed_ms(lambda: _cuda.edit_rows(g_e, ops_e), 5)
+    rows = int(ops_e.tlen.sum())
+    e_cells = float(rows) * g_e.bw
+    edit_bound_ms, edit_bound_by, edit_bound_text = bound(
+        edit_bytes(g_e, ops_e), rows * g_e.NW * EDIT_OPS_PER_WORD_ROW)
+    print(f"phase6 kernel: {edit_ms:.3f} ms per launch of {len(main_idx)} "
+          f"pairs (T={g_e.T}, NW={g_e.NW}), {e_cells / (edit_ms / 1e3):.4g} "
+          f"cells/s; plain on the card {edit_plain_ms:.1f} ms; bound "
+          f"{edit_bound_ms:.4f} ms by {edit_bound_by} ({edit_bound_text})")
+    del ops_e
+    g_w, ops_w = edit_operands([qs[i] for i in main_idx],
+                               [ts[i] for i in main_idx], MODE_GLOBAL, 128,
+                               True)
+    print(f"phase6 kernel at -W 128 on the same pairs (NW={g_w.NW}): "
+          f"{timed_ms(lambda: _cuda.edit_rows(g_w, ops_w), 5):.3f} ms")
+    del ops_w
+
+    torch.cuda.synchronize()
+    metrics.reset()
+    _cuda.launches = _cuda.edit_launches = 0
+    t0 = time.time()
+    res_e = D.edit_batch(qs, ts, MODE_GLOBAL, 0, device=dev)
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t0
+    edit_launches = _cuda.edit_launches
+    print(f"phase6 edit_batch: 512 pairs in {e2e_s:.3f}s = "
+          f"{512 / e2e_s:.2f} pairs/s, edit kernel launches {edit_launches}, "
+          f"banded-8 launches {_cuda.launches}")
+    for nm, c in sorted(metrics.counters().items()):
+        print(f"phase6 counter {nm}: {c.cells:.6g} cells in {c.seconds:.4f}s "
+              f"over {c.calls} calls ({c.cells_per_s:.4g} cells/s)")
+    if edit_launches < 2:
+        return fail(f"edit main path launched the kernel {edit_launches} "
+                    "times (< 2)")
+    if len(res_e) != 512:
+        return fail(f"edit_batch returned {len(res_e)} results")
+    for b, (rs, cg) in enumerate(res_e):
+        if not (rs.mat > 0 and cg and rs.qe == len(qs[b])
+                and rs.te == len(ts[b]) and 0 < rs.score < len(ts[b]) // 3):
+            return fail(f"pair {b}: implausible global edit alignment {rs}")
+
+    def check_cpu(label, res, idx, qs, ts, run_cpu):
+        t0 = time.time()
+        cpu = run_cpu([qs[i] for i in idx], [ts[i] for i in idx])
+        if tsv([res[i] for i in idx], idx, qs, ts) != tsv(cpu, idx, qs, ts):
+            raise RuntimeError(f"phase 6 {label}: TSV of pairs {list(idx)} "
+                               "differs from the CPU path")
+        print(f"phase6 {label}: TSV of {len(idx)} pairs == CPU path "
+              f"({time.time() - t0:.1f}s on the CPU)")
+
+    try:
+        check_cpu("-W 0", res_e, list(range(32)), qs, ts, lambda q, t:
+                  D.edit_batch(q, t, MODE_GLOBAL, 0, device="cpu"))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res_w = D.edit_batch(qs, ts, MODE_GLOBAL, 128, device=dev)
+        torch.cuda.synchronize()
+        t_w = time.time() - t0
+        print(f"phase6 edit_batch -W 128: 512 pairs in {t_w:.3f}s = "
+              f"{512 / t_w:.2f} pairs/s")
+        check_cpu("-W 128", res_w, list(range(4)), qs, ts, lambda q, t:
+                  D.edit_batch(q, t, MODE_GLOBAL, 128, device="cpu"))
+        qk, tk = gen_pairs(64, 10000, 0.10, SEED + 21)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res_k = D.kmer_edit_batch(13, qk, tk, device=dev)
+        torch.cuda.synchronize()
+        t_k = time.time() - t0
+        print(f"phase6 kmer_edit_batch k 13: 64 x 10 kb pairs in {t_k:.3f}s "
+              f"= {64 / t_k:.2f} pairs/s")
+        check_cpu("kmer", res_k, list(range(4)), qk, tk, lambda q, t:
+                  D.kmer_edit_batch(13, q, t, device="cpu"))
+    except RuntimeError as e:
+        return fail(str(e))
+
     for mod in ("jax", "bsalign_tpu"):
         if mod in sys.modules:
             return fail(f"{mod} was imported")
@@ -288,7 +551,16 @@ def main() -> int:
         "source": "bsalign_tpu_torch/csrc/banded8.cu",
         "replaces": "bsalign_tpu/ops/banded8_pallas.py:742",
         "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": b8_bound_ms, "bound_by": b8_bound_by,
+        "library_ms": None}, {
+        "name": "edit_rows", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/edit.cu",
+        "replaces": "bsalign_tpu/ops/edit_pallas.py:88",
+        "launches": edit_launches, "max_abs_err": edit_err,
+        "ms": edit_ms, "plain_ms": edit_plain_ms,
+        "bound_ms": edit_bound_ms, "bound_by": edit_bound_by,
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
-"""The hand-written CUDA banded-8 kernel against its plain PyTorch version,
-on one CUDA device. Every test here needs the card and nvcc: it carries the
-`cuda` marker and skips without a CUDA device. The file imports no jax, so
-it runs on the GPU machine:
+"""The hand-written CUDA kernels (banded-8, edit) against their plain
+PyTorch versions, on one CUDA device. Every test here needs the card and
+nvcc: it carries the `cuda` marker and skips without a CUDA device. The
+file imports no jax, so it runs on the GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -144,3 +144,112 @@ def test_align_batch_cuda_matches_cpu(mode, cuda_device):
         return "".join(CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b], rs, cg)
                        for b, (rs, cg) in enumerate(out))
     assert tsv(cuda_device) == tsv("cpu")
+
+
+# ---- the edit kernel (csrc/edit.cu) ----
+
+def _edit_operands(qs, ts, mode, bw, banded, device):
+    from bsalign_tpu_torch.align import editdist as D
+    from bsalign_tpu_torch.ops import edit as KE
+    T, _, ops = D._pack_bucket(qs, ts, bw, banded)
+    return (KE.Geometry(T, bw // 32, mode),
+            KE.operands_from_numpy(*ops, T=T, device=device))
+
+
+def _assert_edit_same(g, ops):
+    """Kernel vs plain on rows < tlen of pm, pp and sbeg, and on the final
+    planes, smin, ry, final sbeg, final rbeg and the global score whole."""
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.ops import edit as KE
+    rk = _cuda.edit_rows(g, ops)
+    rp = KE.forward_plain(g, ops)
+    torch.cuda.synchronize()
+    for b, n in enumerate(ops.tlen.tolist()):
+        for fld in ("pm", "pp", "sbeg"):
+            assert torch.equal(rk[fld][b, :n], rp[fld][b, :n]), (fld, b)
+    for fld in ("fin_pm", "fin_pp", "scal"):
+        assert torch.equal(rk[fld], rp[fld]), fld
+    assert torch.equal(KE.final_score(g, rk, ops.qlen),
+                       KE.final_score(g, rp, ops.qlen))
+
+
+# (mode, band bits, banded, pair lengths, seed): NW 1, 2, 3, 8 and 64
+EDIT_CASES = [
+    (MODE_GLOBAL, 32, True, (150, 190, 240), 1),
+    (MODE_GLOBAL, 64, True, (150, 190, 240), 2),
+    (MODE_GLOBAL, 96, True, (300, 250), 3),
+    (MODE_GLOBAL, 256, False, (150, 200, 230), 4),
+    (MODE_OVERLAP, 256, False, (150, 200, 230), 5),
+    (MODE_EXTEND, 256, False, (150, 200, 230), 6),
+    (MODE_GLOBAL, 2048, False, (2000, 1900), 7),
+]
+
+
+@pytest.mark.parametrize("case", range(len(EDIT_CASES)))
+def test_edit_kernel_matches_plain(case, cuda_device):
+    mode, bw, banded, lens, seed = EDIT_CASES[case]
+    qs, ts = _pairs(lens, 0.12, seed)
+    _assert_edit_same(*_edit_operands(qs, ts, mode, bw, banded, cuda_device))
+
+
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_EXTEND])
+def test_edit_kernel_full_band_reset_matches_plain(mode, cuda_device):
+    """A hand-made trajectory whose band jumps by more than its width on
+    some rows resets the planes, which driver trajectories rarely reach."""
+    rng = np.random.default_rng(23)
+    qs = [rng.integers(0, 4, L).astype(np.uint8) for L in (1500, 1200)]
+    ts = [rng.integers(0, 4, L).astype(np.uint8) for L in (200, 150)]
+    g, ops = _edit_operands(qs, ts, mode, 64, True, "cpu")
+    rbegs = np.zeros((g.T, 2), np.int32)
+    for b, t in enumerate(ts):
+        cur = 0
+        for i in range(len(t)):
+            cur += 64 + 7 * (i % 3) if i % 37 == 5 else (i % 11 == 3) * 13
+            rbegs[i, b] = min(cur, len(qs[b]) - 8)
+    movxs = np.diff(rbegs, axis=0, prepend=0).astype(np.int32)
+    for b, t in enumerate(ts):
+        movxs[len(t):, b] = 0
+    assert movxs.max() >= 64
+    ops = ops._replace(rbegs=torch.as_tensor(rbegs, device=cuda_device),
+                       movxs=torch.as_tensor(movxs, device=cuda_device),
+                       **{f: getattr(ops, f).to(cuda_device)
+                          for f in ("qeq", "qlen", "tseq", "tlen")})
+    _assert_edit_same(g, ops)
+
+
+def test_edit_forward_on_cuda_launches_and_matches_cpu(cuda_device):
+    from bsalign_tpu_torch.align import editdist as D
+    from bsalign_tpu_torch.ops import _cuda
+    qs, ts = _pairs((150, 220, 300, 180), 0.12, 40)
+    before = _cuda.edit_launches
+    rg = D.edit_batch(qs, ts, MODE_GLOBAL, 64, device=cuda_device)
+    assert _cuda.edit_launches > before
+    n = _cuda.edit_launches
+    rc = D.edit_batch(qs, ts, MODE_GLOBAL, 64, device="cpu")
+    assert _cuda.edit_launches == n
+    for (a, ca), (c, cc) in zip(rg, rc):
+        assert vars(a) == vars(c) and ca == cc
+
+
+def test_edit_launcher_refuses_cpu_tensors(cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    qs, ts = _pairs((100, 120), 0.1, 41)
+    g, ops = _edit_operands(qs, ts, MODE_GLOBAL, 256, False, "cpu")
+    before = _cuda.edit_launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _cuda.edit_rows(g, ops)
+    assert _cuda.edit_launches == before
+
+
+@pytest.mark.parametrize("mode", ["global", "overlap", "extend", "kmer"])
+def test_edit_cli_cuda_matches_cpu(mode, cuda_device, tmp_path, capsys):
+    from .util import write_pairs_fasta
+    rng = np.random.default_rng(42)
+    path = tmp_path / "p.fa"
+    write_pairs_fasta(str(path), [gen_pair(rng, L, 0.12)
+                                  for L in (150, 400, 900)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        assert CLI.main(["edit", "-m", mode, "--device", dev, str(path)]) == 0
+        out[dev] = capsys.readouterr().out
+    assert out["cuda"] == out["cpu"] and out["cpu"].count("\n") == 12

@@ -1,8 +1,9 @@
 """Package boundaries of bsalign_tpu_torch: it runs without jax and without
 bsalign_tpu, never drops from CUDA to the CPU, and its CPU path never
-launches the CUDA kernel."""
+launches the CUDA kernels."""
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -21,12 +22,14 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
-import json, sys
+import json, os, sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
+from bsalign_tpu_torch import native
+from bsalign_tpu_torch.align.editdist import edit_batch
 from bsalign_tpu_torch.align.pairwise import align_batch
-from bsalign_tpu_torch.constants import MODE_OVERLAP
+from bsalign_tpu_torch.constants import MODE_GLOBAL, MODE_OVERLAP
 from bsalign_tpu_torch.ops import _cuda
 from bsalign_tpu_torch.oracle import banded8 as O
 rng = np.random.default_rng(5)
@@ -34,22 +37,37 @@ ts = [rng.integers(0, 4, 120).astype(np.uint8) for _ in range(3)]
 qs = [t[5:].copy() for t in ts]
 out = align_batch(qs, ts, MODE_OVERLAP, 32, O.set_score_matrix(2, -6),
                   -3, -2, 0, 0, device="cpu")
+eout = edit_batch(qs, ts, MODE_GLOBAL, 0, device="cpu")
 print(json.dumps({"mods": sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("jax", "bsalign_tpu")),
                   "launches": _cuda.launches,
-                  "mat": [rs.mat for rs, _ in out]}))
+                  "edit_launches": _cuda.edit_launches,
+                  "walker_source": native.SOURCE,
+                  "walker_built": os.listdir(os.path.dirname(
+                      native.rowops_lib()._name)),
+                  "mat": [rs.mat for rs, _ in out],
+                  "edit": [(rs.mat, rs.dele, rs.score) for rs, _ in eout]}))
 """
 
 
-def test_cpu_path_imports_neither_jax_nor_bsalign_tpu():
-    env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+def test_cpu_path_imports_neither_jax_nor_bsalign_tpu(tmp_path):
+    """align and edit on the CPU from a copy of the port alone: no
+    bsalign_tpu beside it, so the walker builds from the port's own
+    rowops.cpp, and neither jax nor bsalign_tpu is imported."""
+    pkg = tmp_path / "bsalign_tpu_torch"
+    shutil.copytree(os.path.join(REPO, "bsalign_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["mods"] == []
-    assert res["launches"] == 0
+    assert res["launches"] == 0 and res["edit_launches"] == 0
+    assert res["walker_source"] == str(pkg / "native" / "rowops.cpp")
+    assert any(f.startswith("rowops-") for f in res["walker_built"])
     assert res["mat"] == [115, 115, 115]
+    assert res["edit"] == [[115, 5, 5]] * 3
 
 
 def test_cuda_device_without_gpu_raises(tmp_path):
@@ -62,6 +80,10 @@ def test_cuda_device_without_gpu_raises(tmp_path):
         cli.main(["align", str(path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["align", "--device", "cuda", str(path)])
+    for argv in (["edit"], ["edit", "--device", "cuda"],
+                 ["edit", "-m", "kmer", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv + [str(path)])
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -88,7 +110,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unported_commands_exit_nonzero(capsys):
-    for cmd in ("edit", "poa", "cat"):
+    for cmd in ("poa", "cat"):
         assert cli.main([cmd, "x.fa"]) != 0
         assert "not yet ported" in capsys.readouterr().err
 
