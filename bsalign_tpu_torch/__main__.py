@@ -1,4 +1,4 @@
-"""`python -m bsalign_tpu_torch align|edit ...`."""
+"""`python -m bsalign_tpu_torch align|edit|poa ...`."""
 import sys
 
 from .cli import main

@@ -1,4 +1,5 @@
-"""CIGAR utilities (port of the parts of bsalign_tpu.cigar that `align` uses).
+"""CIGAR utilities (port of the parts of bsalign_tpu.cigar that `align` and
+`poa` use).
 
 Packed-cigar convention matches SAM and the reference ((len<<4)|op,
 bsalign.h:401-417); alignment-string rendering mirrors
@@ -36,6 +37,14 @@ def push_cigar(cigars: List[int], op: int, sz: int) -> None:
         cigars[-1] += sz << 4
     else:
         cigars.append((sz << 4) | op)
+
+
+def iter_cigar_ops(cigars: List[int]):
+    """Each op of the packed CIGAR, once per base it covers."""
+    for cg in cigars:
+        op = cg & 0xF
+        for _ in range(cg >> 4):
+            yield op
 
 
 def cigar2alnstr(qseq: np.ndarray, tseq: np.ndarray, rs: AlnResult,

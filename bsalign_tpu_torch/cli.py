@@ -1,11 +1,12 @@
-"""bsalign-tpu-torch command line: `align` and `edit` (port of
+"""bsalign-tpu-torch command line: `align`, `edit` and `poa` (port of
 bsalign_tpu.cli).
 
-Flags and output are those of `python -m bsalign_tpu.cli align` and
-`... edit`, byte for byte, plus `--device {cuda,cpu}`: `cuda` (the default)
-runs the DP in the hand-written CUDA kernels and raises when no CUDA device
-is present; `cpu` runs their plain PyTorch versions. Input pairs are
-consecutive FASTA/Q records (q, t, q, t, ...).
+Flags and output are those of `python -m bsalign_tpu.cli align`, `... edit`
+and `... poa`, byte for byte, plus `--device {cuda,cpu}`: `cuda` (the
+default) runs the DP in the hand-written CUDA kernels and raises when no
+CUDA device is present; `cpu` runs their plain PyTorch versions. Input
+pairs of `align` and `edit` are consecutive FASTA/Q records (q, t, q, t,
+...); `poa` takes one window's reads.
 """
 from __future__ import annotations
 
@@ -149,7 +150,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         sys.stderr.write(
-            "Usage: bsalign-tpu-torch <align|edit> [options] <fasta>\n")
+            "Usage: bsalign-tpu-torch <align|edit|poa> [options] <fasta>\n")
         return 1
     cmd = argv[0].lower()
     if cmd in ("align", "edit"):
@@ -157,7 +158,10 @@ def main(argv=None):
         if metrics.verbose():
             metrics.report()
         return rc
-    if cmd in ("poa", "cat"):
+    if cmd == "poa":
+        from .poa.cli import run_poa
+        return run_poa(argv[1:])
+    if cmd == "cat":
         sys.stderr.write(f" -- '{cmd}' is not yet ported to "
                          "bsalign_tpu_torch (use bsalign_tpu) --\n")
         return 2

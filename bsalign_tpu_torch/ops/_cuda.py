@@ -28,9 +28,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 PAIRS_PER_BLOCK = 2   # one warp per block: 256 pairs spread over 128 SMs
 
 EDIT_MAX_NW = 512     # widest edit band the kernel is built for (16384 bits)
+PEDIT_MAX_BW = 1022   # widest pedit band: bw + 2 cells, one thread each
 
 launches = 0          # kernel launches of bsa_banded8_codes in this process
 edit_launches = 0     # kernel launches of bsa_edit_rows in this process
+pedit_launches = 0    # kernel launches of bsa_pedit_rows in this process
 build_seconds = 0.0
 _LIB = None
 _LOCK = threading.Lock()
@@ -61,6 +63,9 @@ def lib():
             so.bsa_edit_rows.argtypes = \
                 [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             so.bsa_edit_rows.restype = ctypes.c_int
+            so.bsa_pedit_rows.argtypes = \
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            so.bsa_pedit_rows.restype = ctypes.c_int
             _LIB = so
     return _LIB
 
@@ -168,6 +173,40 @@ def edit_rows(g, ops):
         raise RuntimeError(f"edit kernel launch failed: CUDA error {rc}")
     edit_launches += 1
     return out
+
+
+def pedit_rows(pk):
+    """Launch the pedit kernel on the packed jobs pk (ops.pedit.Packed, on
+    one CUDA device). Returns the two flat uint8 output matrices as device
+    tensors, zero outside the rows each job writes."""
+    global pedit_launches
+    if pk.bw > PEDIT_MAX_BW:
+        raise NotImplementedError(
+            f"pedit band of {pk.bw} cells exceeds the kernel's limit of "
+            f"{PEDIT_MAX_BW} (one thread per cell, {PEDIT_MAX_BW + 2} cells "
+            "per block)")
+    for name, dt in (("rd", torch.uint8), ("cn", torch.uint8),
+                     ("jobs", torch.int64)):
+        t = getattr(pk, name)
+        if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"pedit kernel: {name} must be a contiguous "
+                             f"{dt} CUDA tensor, got {t.dtype} on {t.device}")
+    J = pk.jobs.shape[0]
+    if tuple(pk.jobs.shape) != (J, 8):
+        raise ValueError(f"pedit kernel: jobs must be [J, 8], got "
+                         f"{tuple(pk.jobs.shape)}")
+    dev = pk.rd.device
+    out0 = torch.zeros(pk.total, dtype=torch.uint8, device=dev)
+    out1 = torch.zeros(pk.total, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().bsa_pedit_rows(pk.rd.data_ptr(), pk.cn.data_ptr(),
+                                  pk.jobs.data_ptr(), out0.data_ptr(),
+                                  out1.data_ptr(), J, pk.bw, pk.HW, stream)
+    if rc != 0:
+        raise RuntimeError(f"pedit kernel launch failed: CUDA error {rc}")
+    pedit_launches += 1
+    return out0, out1
 
 
 def to_host_async(raw, inputs):

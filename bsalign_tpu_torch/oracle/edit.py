@@ -1,5 +1,6 @@
 """Host helpers of the bit-parallel edit-distance aligner that the `edit`
-driver calls (port of the parts of bsalign_tpu.oracle.edit it needs).
+driver and the POA engine call (port of the parts of bsalign_tpu.oracle.edit
+they need).
 
 The reference is striped_seqedit_* (bsalign.h:612-1206) and
 kmer_striped_seqedit_pairwise (bsalign.h:1209-1536): per-pair band
@@ -220,3 +221,22 @@ def _kmer_chain(qseq: np.ndarray, tseq: np.ndarray, ksz: int,
     if m < cmin:
         return None
     return chain
+
+
+def edit_pairwise(qseq: np.ndarray, tseq: np.ndarray, mode: int,
+                  bandwidth: int) -> Tuple[AlnResult, List[int]]:
+    """Scalar banded edit alignment of one pair (bsalign.h:1046-1206), in
+    the host C++. The POA engine maps non-core reads onto the consensus
+    with it."""
+    if len(qseq) == 0 or len(tseq) == 0:
+        return AlnResult(), []
+    from ..native import rowops as NR
+    return NR.edit_align(qseq, tseq, mode_type(mode), bandwidth)
+
+
+def kmer_edit_pairwise(ksz: int, qseq: np.ndarray, tseq: np.ndarray,
+                       ) -> Tuple[AlnResult, List[int]]:
+    """Segmented edit alignment guided by unique-kmer synteny
+    (bsalign.h:1209-1536), in the host C++."""
+    from ..native import rowops as NR
+    return NR.kmer_edit(min(ksz, 15), qseq, tseq)

@@ -6,9 +6,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. Environment: the card's name and power limit, then the build of the
-   CUDA kernels (csrc/*.cu: banded-8 and edit, one nvcc per source started
-   together, sm_90a, linked into one library) and of the host codes walker
-   (g++), with their build seconds.
+   CUDA kernels (csrc/*.cu: banded-8, edit and pedit, one nvcc per source
+   started together, sm_90a, linked into one library) and of the host
+   library (g++: the codes walker and the POA engine), with their build
+   seconds.
 2. Banded-8 kernel against its plain PyTorch version, both on the card, on
    seeded pairs at 10% error: codes, begs, score/qe/te and the final state
    must agree bit for bit (tolerance 0: the arithmetic is integer).
@@ -31,6 +32,19 @@ Phases, in order; any failure exits non-zero:
    of the first 32 pairs must equal the CPU path. Then the same pairs at
    -W 128 and `kmer_edit_batch` (k 13) on 64 pairs x 10 kb, each checked
    against the CPU path on 4 pairs.
+7. Pedit kernel against its plain PyTorch version, both on the card, with
+   tolerance 0 (uint8 outputs): the first realignment round's jobs of 128
+   seeded POA windows (20 reads x 800 bp at 12% error, band 32; the main
+   path's shape, timed), those of the first 16 windows also against the
+   host's bsa_pedit_forward; random jobs at bw 64 and 128; the widest band
+   the kernel takes (1022); the shortest jobs (mend = mbeg + 1, + 2).
+8. The poa main path: `run_windows_lockstep` on the 128 windows with the
+   default BSPOAPar on the card. The pedit kernel's launch count over that
+   run must be at least 3 (one per realignment round), and cns, qlt, alt,
+   SNV lines and MSA of the first 2 windows must equal the port's CPU
+   path. Prints windows/s and the per-window build / pack / kernel / fetch
+   / apply seconds. Then the `poa` CLI on one window prints the same bytes
+   with --device cuda and --device cpu.
 
 The line before the last is a JSON object with each kernel's launches on
 its main path, error, times and bound; the last line is {"ok": true,
@@ -66,6 +80,11 @@ BANDED8_OPS_PER_CELL = 65
 # edit: per plane word and row, 3 for the Eq window, 21 for the Myers step
 # with the carry, 3 for the one-bit shifts
 EDIT_OPS_PER_WORD_ROW = 27
+# pedit: per band cell and step, 4 for the two indices and their bounds, 6
+# for the base loads and count selects, 4 for the count addresses, 2 for
+# the saturating add, 2 for the max with the predecessors, 2 for the
+# differences
+PEDIT_OPS_PER_CELL = 20
 
 
 def fail(msg: str) -> int:
@@ -97,6 +116,42 @@ def gen_pairs(n, length, err=0.10, seed=0):
         qs.append(np.array(q, np.uint8))
         ts.append(t)
     return qs, ts
+
+
+def gen_poa_window(rng, nreads=20, reflen=800, err=0.12):
+    """Seeded window: reads of one random reference with substitutions,
+    insertions and deletions at rate err (the JAX bench's generator)."""
+    ref = rng.integers(0, 4, reflen)
+    reads = []
+    for _ in range(nreads):
+        out, i = [], 0
+        while i < reflen:
+            r = rng.random()
+            if r < err * 0.3:
+                out.append((int(ref[i]) + int(rng.integers(1, 4))) & 3)
+                i += 1
+            elif r < err * 0.6:
+                out.append(int(rng.integers(0, 4)))
+            elif r < err:
+                i += 1
+            else:
+                out.append(int(ref[i]))
+                i += 1
+        reads.append("".join("ACGT"[c] for c in out))
+    return reads
+
+
+def pedit_work(jobs):
+    """(bytes, cells) one pedit launch must move and compute for these
+    jobs: of the inputs, 5 planes of pad bytes per job (read side) and per
+    window (consensus side, stored once); of the outputs, the rows each job
+    writes (its seed and one per step) in both matrices."""
+    wins = {id(j.seqs1): len(j.seqs1) for j in jobs}
+    rows = sum(1 + max(2 * (j.mend - j.mbeg) - 1, 1) for j in jobs)
+    rowlen = jobs[0].bw + 2
+    nb = 5 * sum(len(j.seqs0) for j in jobs) + 5 * sum(wins.values()) \
+        + 2 * rows * rowlen
+    return nb, (rows - len(jobs)) * rowlen
 
 
 def bound(nbytes, ops):
@@ -297,7 +352,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     metrics.reset()
-    _cuda.launches = _cuda.edit_launches = 0
+    _cuda.launches = _cuda.edit_launches = _cuda.pedit_launches = 0
     t0 = time.time()
     res_gpu = P.align_batch(qs, ts, MODE_GLOBAL, bw, mtx, *gaps, device=dev)
     torch.cuda.synchronize()
@@ -487,7 +542,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     metrics.reset()
-    _cuda.launches = _cuda.edit_launches = 0
+    _cuda.launches = _cuda.edit_launches = _cuda.pedit_launches = 0
     t0 = time.time()
     res_e = D.edit_batch(qs, ts, MODE_GLOBAL, 0, device=dev)
     torch.cuda.synchronize()
@@ -543,6 +598,184 @@ def main() -> int:
     except RuntimeError as e:
         return fail(str(e))
 
+    # ---- phase 7: the pedit kernel against its plain version ----
+    from bsalign_tpu_torch.native import rowops as NR
+    from bsalign_tpu_torch.ops import pedit as PE
+    from bsalign_tpu_torch.poa import batch as PB
+    from bsalign_tpu_torch.poa.core import BSPOA, BSPOAPar
+
+    rng = np.random.default_rng(SEED + 30)
+    windows = [gen_poa_window(rng) for _ in range(128)]
+    t0 = time.time()
+    round_jobs = []
+    for w in windows:
+        g = BSPOA(BSPOAPar(), device=dev)
+        g.beg()
+        for s in w:
+            g.push(s)
+        g.end_begin()
+        g.msa()
+        g.cns_call()
+        ctx = g._remsa_prepare(g.par.editbw // 2, 1)
+        round_jobs.append(g._remsa_dev_build(ctx, 0)[0])
+    print(f"phase7 first-round jobs of 128 windows built on the host in "
+          f"{time.time() - t0:.2f}s")
+
+    def pedit_compare(jobs):
+        """Kernel vs plain on the same device buffers: max |diff| over
+        both whole output matrices, and the plain version's ms."""
+        pk = PE.pack_jobs(jobs, dev)
+        k0, k1 = _cuda.pedit_rows(pk)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p0, p1 = PE.forward_plain(pk)
+        e1.record()
+        torch.cuda.synchronize()
+        err = max(int((k0.int() - p0.int()).abs().max()),
+                  int((k1.int() - p1.int()).abs().max()))
+        return pk, err, e0.elapsed_time(e1), (k0.cpu().numpy(),
+                                              k1.cpu().numpy())
+
+    def native_err(jobs, pk, host):
+        """Max |diff| of the kernel's rows against bsa_pedit_forward."""
+        worst = 0
+        for j, o in zip(jobs, pk.offs.tolist()):
+            rowlen = j.bw + 2
+            n = (2 * j.mlen + 2) * rowlen
+            n0 = np.zeros(n, np.uint8)
+            n1 = np.zeros(n, np.uint8)
+            NR.pedit_forward(n0, n1, j.seqs0, j.seqs1, j.mats0, j.mats1,
+                             j.mlen, j.mbeg, j.mend, j.bw, j.HW, rowlen)
+            lo, hi = 2 * j.mbeg * rowlen, 2 * j.mend * rowlen
+            for h, ref in zip(host, (n0, n1)):
+                worst = max(worst, int(np.abs(
+                    h[o + lo:o + hi].astype(np.int32)
+                    - ref[lo:hi].astype(np.int32)).max()))
+        return worst
+
+    def rand_job(rng, mlen, bw, span=None):
+        HW = bw // 2
+        pad = mlen + bw
+        seqs0 = np.full(pad, 4, np.uint8)
+        pos = np.sort(rng.choice(mlen, int(rng.integers(mlen // 2, mlen)),
+                                 replace=False))
+        seqs0[HW + pos] = rng.integers(0, 4, len(pos))
+        seqs1 = np.zeros(pad, np.uint8)
+        seqs1[HW:HW + mlen] = rng.integers(0, 5, mlen)
+        mats0 = np.zeros((4, pad), np.uint8)
+        mats1 = np.zeros((4, pad), np.uint8)
+        mats0[:, HW:HW + mlen] = rng.integers(0, 6, (4, mlen))
+        mats1[:, HW:HW + mlen] = rng.integers(0, 251, (4, mlen))
+        if span is None:
+            mbeg = int(rng.integers(0, mlen // 4))
+            mend = int(rng.integers(mbeg + 2, mlen + 1))
+        else:
+            mbeg = int(rng.integers(0, mlen - span + 1))
+            mend = mbeg + span
+        return PE.PeditJob(seqs0, seqs1, mats0, mats1, mlen, mbeg, mend, bw,
+                           HW)
+
+    jobs16 = [j for js in round_jobs[:16] for j in js]
+    main_jobs = [j for js in round_jobs for j in js]
+    cases7 = [
+        ("(a) round 1 of 16 windows, bw 32", jobs16, True),
+        ("(b) 32 random jobs, bw 64",
+         [rand_job(rng, int(rng.integers(200, 900)), 64) for _ in range(32)],
+         False),
+        ("(c) 32 random jobs, bw 128",
+         [rand_job(rng, int(rng.integers(200, 900)), 128)
+          for _ in range(32)], False),
+        (f"(d) 8 random jobs, bw {_cuda.PEDIT_MAX_BW} (the widest)",
+         [rand_job(rng, int(rng.integers(200, 600)), _cuda.PEDIT_MAX_BW)
+          for _ in range(8)], True),
+        ("(e) shortest jobs, mend = mbeg + 2 and + 1",
+         [rand_job(rng, 60, 32, span=s) for s in (2, 1, 2, 1)], True),
+    ]
+    pedit_err = 0
+    for label, jobs, vs_native in cases7:
+        pk, err, p_ms, host = pedit_compare(jobs)
+        pedit_err = max(pedit_err, err)
+        extra = ""
+        if vs_native:
+            nerr = native_err(jobs, pk, host)
+            pedit_err = max(pedit_err, nerr)
+            extra = f", against bsa_pedit_forward {nerr}"
+            err = max(err, nerr)
+        k_ms = timed_ms(lambda: _cuda.pedit_rows(pk), 5)
+        print(f"phase7 {label}: {len(jobs)} jobs, max_abs_err={err}{extra}; "
+              f"kernel {k_ms:.3f} ms, plain on the card {p_ms:.1f} ms")
+        if err:
+            return fail(f"phase 7 {label}: kernel disagrees (max|diff| "
+                        f"{err})")
+    pk_main, err, pedit_plain_ms, _ = pedit_compare(main_jobs)
+    pedit_err = max(pedit_err, err)
+    if err:
+        return fail(f"phase 7 main round: kernel disagrees (max|diff| {err})")
+    pedit_ms = timed_ms(lambda: _cuda.pedit_rows(pk_main), 5)
+    p_bytes, p_cells = pedit_work(main_jobs)
+    pedit_bound_ms, pedit_bound_by, pedit_bound_text = bound(
+        p_bytes, p_cells * PEDIT_OPS_PER_CELL)
+    print(f"phase7 main round: {len(main_jobs)} jobs of 128 windows, "
+          f"max_abs_err={err}; kernel {pedit_ms:.3f} ms, "
+          f"{p_cells / (pedit_ms / 1e3):.4g} cells/s; plain on the card "
+          f"{pedit_plain_ms:.1f} ms; bound {pedit_bound_ms:.4f} ms by "
+          f"{pedit_bound_by} ({pedit_bound_text})")
+    del pk_main, round_jobs, main_jobs, jobs16
+
+    # ---- phase 8: the poa main path ----
+    torch.cuda.synchronize()
+    _cuda.launches = _cuda.edit_launches = _cuda.pedit_launches = 0
+    t0 = time.time()
+    res_p = PB.run_windows_lockstep(windows, BSPOAPar(), device=dev,
+                                    want_msa=True)
+    torch.cuda.synchronize()
+    t_p = time.time() - t0
+    pedit_launches = _cuda.pedit_launches
+    probe = dict(PB.last_probe)
+    print(f"phase8 run_windows_lockstep: 128 windows in {t_p:.3f}s = "
+          f"{128 / t_p:.3f} windows/s, pedit kernel launches "
+          f"{pedit_launches}, banded-8 {_cuda.launches}, edit "
+          f"{_cuda.edit_launches}")
+    print("phase8 per window: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in probe.items()))
+    if pedit_launches < 3:
+        return fail(f"poa main path launched the pedit kernel "
+                    f"{pedit_launches} times (< 3)")
+    for w, r in enumerate(res_p):
+        if not (700 <= len(r.cns) <= 900 and len(r.qlt) == len(r.cns)):
+            return fail(f"window {w}: implausible consensus length "
+                        f"{len(r.cns)}")
+    t0 = time.time()
+    res_c = PB.run_windows_lockstep(windows[:2], BSPOAPar(), device="cpu",
+                                    want_msa=True)
+    for w, (a, b) in enumerate(zip(res_p[:2], res_c)):
+        if not (np.array_equal(a.cns, b.cns) and np.array_equal(a.qlt, b.qlt)
+                and np.array_equal(a.alt, b.alt) and a.snvs == b.snvs
+                and a.msa == b.msa):
+            return fail(f"phase 8: window {w} differs from the CPU path")
+    print(f"phase8 cns/qlt/alt/SNVs/MSA of 2 windows == CPU path "
+          f"({time.time() - t0:.1f}s on the CPU)")
+    import contextlib
+    import io
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = os.path.join(tmp, "w.fa")
+        with open(fa, "w") as f:
+            f.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(windows[0])))
+        outs = []
+        for d in ("cuda", "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = CLI.main(["poa", "--device", d, fa])
+            if rc != 0:
+                return fail(f"phase 8: poa CLI --device {d} returned {rc}")
+            outs.append(buf.getvalue())
+    if outs[0] != outs[1] or outs[0].count("\n") < 20:
+        return fail("phase 8: poa CLI stdout differs between cuda and cpu")
+    print(f"phase8 poa CLI on window 0: --device cuda == --device cpu "
+          f"({outs[0].count(chr(10))} lines)")
+
     for mod in ("jax", "bsalign_tpu"):
         if mod in sys.modules:
             return fail(f"{mod} was imported")
@@ -560,6 +793,13 @@ def main() -> int:
         "launches": edit_launches, "max_abs_err": edit_err,
         "ms": edit_ms, "plain_ms": edit_plain_ms,
         "bound_ms": edit_bound_ms, "bound_by": edit_bound_by,
+        "library_ms": None}, {
+        "name": "pedit_rows", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/pedit.cu",
+        "replaces": "bsalign_tpu/ops/pedit_pallas.py:46",
+        "launches": pedit_launches, "max_abs_err": pedit_err,
+        "ms": pedit_ms, "plain_ms": pedit_plain_ms,
+        "bound_ms": pedit_bound_ms, "bound_by": pedit_bound_by,
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (banded-8, edit) against their plain
-PyTorch versions, on one CUDA device. Every test here needs the card and
+"""The hand-written CUDA kernels (banded-8, edit, pedit) against their
+plain PyTorch versions, on one CUDA device. Every test here needs the card and
 nvcc: it carries the `cuda` marker and skips without a CUDA device. The
 file imports no jax, so it runs on the GPU machine:
 
@@ -253,3 +253,71 @@ def test_edit_cli_cuda_matches_cpu(mode, cuda_device, tmp_path, capsys):
         assert CLI.main(["edit", "-m", mode, "--device", dev, str(path)]) == 0
         out[dev] = capsys.readouterr().out
     assert out["cuda"] == out["cpu"] and out["cpu"].count("\n") == 12
+
+
+# ---- pedit (csrc/pedit.cu) ----
+def _pedit_jobs(kind):
+    from .test_torch_pedit import _gen_window, _mk_job, _round_jobs
+    rng = np.random.default_rng(31)
+    if kind == "short":
+        return [_mk_job(rng, int(rng.integers(8, 60)), 32, span=s)
+                for s in (2, 1, 2, 1)]
+    if kind == "window":
+        return _round_jobs(_gen_window(rng, 8, 173))[0]
+    if kind == "short-pad":
+        # buffers cut to mlen + bw/2: cells past pad read the defaults
+        out = []
+        for j in (_mk_job(rng, int(rng.integers(30, 90)), 64)
+                  for _ in range(4)):
+            pad = j.mlen + 32
+            out.append(type(j)(j.seqs0[:pad].copy(), j.seqs1[:pad].copy(),
+                               j.mats0[:, :pad].copy(),
+                               j.mats1[:, :pad].copy(), j.mlen, j.mbeg,
+                               j.mend, j.bw, j.HW))
+        return out
+    bw = int(kind)
+    return [_mk_job(rng, int(rng.integers(20, 200)), bw) for _ in range(6)]
+
+
+@pytest.mark.parametrize("kind", ["32", "64", "128", "1022", "short",
+                                  "window", "short-pad"])
+def test_pedit_kernel_matches_plain(kind, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.ops import pedit as PE
+    pk = PE.pack_jobs(_pedit_jobs(kind), cuda_device)
+    before = _cuda.pedit_launches
+    k0, k1 = _cuda.pedit_rows(pk)
+    p0, p1 = PE.forward_plain(pk)
+    torch.cuda.synchronize()
+    assert _cuda.pedit_launches == before + 1
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
+
+
+def test_pedit_kernel_refuses_wide_band_and_cpu(cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.ops import pedit as PE
+    from .test_torch_pedit import _mk_job
+    rng = np.random.default_rng(2)
+    with pytest.raises(NotImplementedError, match="limit"):
+        _cuda.pedit_rows(PE.pack_jobs([_mk_job(rng, 40, 1024)], cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _cuda.pedit_rows(PE.pack_jobs([_mk_job(rng, 40, 32)], "cpu"))
+
+
+def test_run_windows_cuda_matches_cpu(cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.poa import batch as PB
+    from bsalign_tpu_torch.poa.core import BSPOAPar
+    from .test_torch_pedit import _gen_window
+    rng = np.random.default_rng(12)
+    wins = [_gen_window(rng, 10, 300 + 50 * k) for k in range(2)]
+    before = _cuda.pedit_launches
+    gpu = PB.run_windows(wins, BSPOAPar(), device=cuda_device, want_msa=True)
+    # one launch per realignment round, all windows in it
+    assert _cuda.pedit_launches - before == BSPOAPar().realn
+    cpu = PB.run_windows(wins, BSPOAPar(), device="cpu", want_msa=True)
+    for a, b in zip(gpu, cpu):
+        assert np.array_equal(a.cns, b.cns)
+        assert np.array_equal(a.qlt, b.qlt)
+        assert np.array_equal(a.alt, b.alt)
+        assert a.snvs == b.snvs and a.msa == b.msa

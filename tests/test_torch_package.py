@@ -38,10 +38,16 @@ qs = [t[5:].copy() for t in ts]
 out = align_batch(qs, ts, MODE_OVERLAP, 32, O.set_score_matrix(2, -6),
                   -3, -2, 0, 0, device="cpu")
 eout = edit_batch(qs, ts, MODE_GLOBAL, 0, device="cpu")
+from bsalign_tpu_torch.ops import pedit
+from bsalign_tpu_torch.poa import batch, cli as pcli, core, extras, graph
+win = ["".join("ACGT"[b] for b in ts[0][i:]) for i in (0, 2, 4, 6)]
+pout = batch.run_windows([win], core.BSPOAPar(), device="cpu")
 print(json.dumps({"mods": sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("jax", "bsalign_tpu")),
                   "launches": _cuda.launches,
                   "edit_launches": _cuda.edit_launches,
+                  "pedit_launches": _cuda.pedit_launches,
+                  "poa_cns": len(pout[0].cns),
                   "walker_source": native.SOURCE,
                   "walker_built": os.listdir(os.path.dirname(
                       native.rowops_lib()._name)),
@@ -51,9 +57,10 @@ print(json.dumps({"mods": sorted(m for m in sys.modules
 
 
 def test_cpu_path_imports_neither_jax_nor_bsalign_tpu(tmp_path):
-    """align and edit on the CPU from a copy of the port alone: no
-    bsalign_tpu beside it, so the walker builds from the port's own
-    rowops.cpp, and neither jax nor bsalign_tpu is imported."""
+    """align, edit and poa (every module of poa/ and ops/pedit.py) on the
+    CPU from a copy of the port alone: no bsalign_tpu beside it, so the
+    host library builds from the port's own rowops.cpp, and neither jax
+    nor bsalign_tpu is imported."""
     pkg = tmp_path / "bsalign_tpu_torch"
     shutil.copytree(os.path.join(REPO, "bsalign_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
@@ -63,7 +70,9 @@ def test_cpu_path_imports_neither_jax_nor_bsalign_tpu(tmp_path):
     assert r.returncode == 0, r.stderr
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["mods"] == []
-    assert res["launches"] == 0 and res["edit_launches"] == 0
+    assert res["launches"] == res["edit_launches"] == 0
+    assert res["pedit_launches"] == 0
+    assert 110 <= res["poa_cns"] <= 120
     assert res["walker_source"] == str(pkg / "native" / "rowops.cpp")
     assert any(f.startswith("rowops-") for f in res["walker_built"])
     assert res["mat"] == [115, 115, 115]
@@ -81,7 +90,8 @@ def test_cuda_device_without_gpu_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["align", "--device", "cuda", str(path)])
     for argv in (["edit"], ["edit", "--device", "cuda"],
-                 ["edit", "-m", "kmer", "--device", "cuda"]):
+                 ["edit", "-m", "kmer", "--device", "cuda"], ["poa"],
+                 ["poa", "--device", "cuda"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv + [str(path)])
 
@@ -110,7 +120,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_unported_commands_exit_nonzero(capsys):
-    for cmd in ("poa", "cat"):
+    for cmd in ("cat",):
         assert cli.main([cmd, "x.fa"]) != 0
         assert "not yet ported" in capsys.readouterr().err
 
