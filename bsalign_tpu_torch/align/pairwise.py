@@ -1,12 +1,22 @@
 """Batched pairwise alignment driver: device forward DP + host traceback
-(port of bsalign_tpu.align.pairwise on its packed-codes path).
+(port of bsalign_tpu.align.pairwise).
 
-The device computes every DP row of a batch of pairs and emits packed
-4-bit traceback codes; the host walks them into CIGARs with the native
-walker, whose decisions are those of the reference's backcal
-(bsalign.h:3704-3852). On a CUDA device the forward is the hand-written
-kernel; on the CPU it is the plain PyTorch version. Both run all T rows
-of a batch in one launch.
+The device computes every DP row of a batch of pairs; the host walks the
+rows into CIGARs with the native library, whose decisions are those of
+the reference's backcal (bsalign.h:3704-3852). On a CUDA device the
+forward is the hand-written kernel; on the CPU it is the plain PyTorch
+version. What the device emits follows the gap costs and the target
+length T (rows, rounded up to 128):
+
+- piecewise 0/1: packed 4-bit traceback codes, walked by the codes walker;
+- piecewise 2 (-Q/-P): the int8 u/e/q planes and stripe anchors, walked
+  by backcal;
+- T > T_CHUNK: the forward runs in resumable row chunks of T_CHUNK rows,
+  the device state carried from one chunk to the next;
+- T > REALIGN_T with codes (the two-pass long-read mode): a scores-only
+  forward keeps each chunk's entry state, then the chunks are re-run in
+  reverse order emitting codes, and the resumable walker consumes each
+  chunk while the device re-runs the one before it.
 """
 from __future__ import annotations
 
@@ -71,6 +81,40 @@ def _init_state(mode, bandwidth, piecewise, smax, smin, gapo1, gape1, gapo2,
 
 
 DEVICE_CHUNK = 256  # pairs per forward launch
+T_CHUNK = 4096      # rows per device call for long targets (bounds the
+                    # device memory held by per-row outputs)
+REALIGN_T = 16384   # beyond this many rows, score first and re-forward row
+                    # chunks on demand for the traceback (two-pass mode)
+
+
+def _forward_chunked(T, W, mode, piecewise, gapo1, gape1, gapo2, gape2,
+                     smax, smin, qpad, qlens, tpad, tlens, mtx5, rby, us0,
+                     es0, qs0, ub0, Tc, codes, device):
+    """Run the forward in row chunks of Tc rows, each call resuming from
+    the previous one's final planes, anchors and registers, and join the
+    chunks' per-row outputs: only Tc rows of outputs are on the device at
+    a time."""
+    us, es, qs, ub = us0, es0, qs0, ub0
+    res = None
+    parts = []
+    for c0 in range(0, T, Tc):
+        c1 = min(c0 + Tc, T)
+        fwd = K8.make_forward(c1 - c0, W, mode, piecewise, gapo1, gape1,
+                              gapo2, gape2, smax, smin, codes=codes,
+                              device=device)
+        res = fwd(qpad, qlens, tpad[:, c0:c1], tlens, mtx5, rby[c0:c1], us,
+                  es, qs, ub, row0=c0,
+                  init_reg=None if res is None else res.final_reg)
+        parts.append(res.planes)
+        us, es, qs = (res.final_planes + [None, None])[:3]
+        ub = res.final_ubegs
+
+    def cat(field):
+        got = [getattr(p, field) for p in parts]
+        return None if got[0] is None else torch.cat(got, 0)
+
+    return res._replace(planes=K8.RowPlanes(*(cat(f) for f in
+                                              K8.RowPlanes._fields)))
 
 
 def align_batch(qseqs: Sequence[np.ndarray], tseqs: Sequence[np.ndarray],
@@ -112,55 +156,93 @@ def _launch_batch(qseqs, tseqs, mode, bandwidth, mtx, gapo1, gape1, gapo2,
     bandwidth = roundup(bandwidth, WS)
     W = bandwidth // WS
     piecewise = O.get_piecewise(gapo1, gape1, gapo2, gape2, bandwidth)
-    if piecewise == 2:
-        raise NotImplementedError(
-            "2-piece gap costs (-Q/-P) need the banded-8 planes emit and the "
-            "backcal traceback, a later ROADMAP item")
     smax = int(mtx.max())
     smin = int(mtx.min())
     qpad, qlens, tpad, tlens, rby, T = _pack_batch(qseqs, tseqs, bandwidth)
     us0, es0, qs0, ub0, _ = _init_state(mode, bandwidth, piecewise, smax,
                                         smin, gapo1, gape1, gapo2, gape2, B)
+    # packed 4-bit traceback codes (0.5 bytes per cell) where the walker
+    # covers the gap model; 2-piece gaps emit the planes for backcal
+    use_codes = piecewise < 2
     fwd_cells = float(np.sum(tlens)) * bandwidth
     t_launch = time.time()
-    fwd = K8.make_forward(T, W, mode, piecewise, gapo1, gape1, gapo2, gape2,
-                          smax, smin, codes=True, device=device)
-    call, ops, meta = fwd.prepare(qpad, qlens, tpad, tlens, _mtx5(mtx), rby,
-                                  us0, es0, qs0, ub0)
-    outs = call(*ops)
+    fwd_args = (qpad, qlens, tpad, tlens, _mtx5(mtx), rby, us0, es0, qs0,
+                ub0)
+    if T > T_CHUNK:
+        if use_codes and T > REALIGN_T:
+            return lambda: _twopass_batch(
+                T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
+                gape2, smax, smin, qseqs, tseqs, fwd_args, T_CHUNK,
+                fwd_cells, t_launch, device)
+        res0 = _forward_chunked(T, W, mode, piecewise, gapo1, gape1, gapo2,
+                                gape2, smax, smin, *fwd_args, Tc=T_CHUNK,
+                                codes=use_codes, device=device)
+        get_res = lambda: res0                               # noqa: E731
+    else:
+        fwd = K8.make_forward(T, W, mode, piecewise, gapo1, gape1, gapo2,
+                              gape2, smax, smin, codes=use_codes,
+                              device=device)
+        # asynchronous launch: the device starts now; the host fetch (and
+        # the blocking wait) happens in the finisher
+        call, ops, meta = fwd.prepare(*fwd_args)
+        outs = call(*ops)
+        get_res = lambda: fwd.unpack(outs, *meta)            # noqa: E731
     return lambda: _finish_batch(
-        lambda: fwd.unpack(outs, *meta), qseqs, tseqs, mode, bandwidth, W,
-        piecewise, smax, smin, gapo1, gape1, gapo2, gape2, tlens, fwd_cells,
+        get_res, qseqs, tseqs, mode, bandwidth, W, piecewise, mtx, smax,
+        smin, gapo1, gape1, gapo2, gape2, tlens, use_codes, fwd_cells,
         t_launch)
 
 
-def _finish_batch(get_res, qseqs, tseqs, mode, bandwidth, W, piecewise,
-                  smax, smin, gapo1, gape1, gapo2, gape2, tlens, fwd_cells,
-                  t_launch):
+def _init_eo(init_row, piecewise, gapo1, gape1, bandwidth):
+    """E-open bits of the row before the first (the codes walkers' start)."""
+    if piecewise and init_row.es is not None:
+        return np.ascontiguousarray(
+            init_row.es.T.reshape(-1) == gapo1 + gape1, np.uint8)
+    return np.ones(bandwidth, np.uint8)
+
+
+def _finish_batch(get_res, qseqs, tseqs, mode, bandwidth, W, piecewise, mtx,
+                  smax, smin, gapo1, gape1, gapo2, gape2, tlens, use_codes,
+                  fwd_cells, t_launch):
     B = len(qseqs)
     res = get_res()
+    planes = res.planes
     metrics.add("banded8_fwd", fwd_cells, time.time() - t_launch)
     t_f0 = time.time()
-    codes_w = np.ascontiguousarray(res.planes.codes.numpy())
-    begs_p = np.ascontiguousarray(res.planes.begs.numpy(), np.int32)
+    if use_codes:
+        codes_w = np.ascontiguousarray(planes.codes.numpy())
+        fetched = [codes_w]
+    else:
+        us_p, es_p, qs_p = (None if p is None else
+                            np.ascontiguousarray(p.numpy())
+                            for p in (planes.us, planes.es, planes.qs))
+        ub_p = np.ascontiguousarray(planes.ubegs.numpy(), np.int32)
+        fetched = [p for p in (us_p, es_p, qs_p, ub_p) if p is not None]
+    begs_p = np.ascontiguousarray(planes.begs.numpy(), np.int32)
     # device->host traffic accounting ("cells" = bytes)
-    metrics.add("e2e_fetch", codes_w.nbytes + begs_p.nbytes,
+    metrics.add("e2e_fetch", sum(a.nbytes for a in fetched) + begs_p.nbytes,
                 time.time() - t_f0)
 
     init_row = O.row_init(mode, bandwidth, smax, smin, gapo1, gape1, gapo2,
                           gape2)
-    if piecewise and init_row.es is not None:
-        init_eo = (init_row.es.T.reshape(-1) == gapo1 + gape1).astype(np.uint8)
-    else:
-        init_eo = np.ones(bandwidth, np.uint8)
     is_overlap = mode_type(mode) == MODE_OVERLAP
+    if use_codes:
+        init_eo = _init_eo(init_row, piecewise, gapo1, gape1, bandwidth)
+    else:
+        mtx8 = np.ascontiguousarray(mtx, np.int8)
     rss = _base_results(res, mode, W, tlens)
     t_tb0 = time.time()
     out = []
     for b in range(B):
         rs = rss[b]
-        cigars = NR.decode_codes(qseqs[b], tseqs[b], codes_w, begs_p,
-                                 init_eo, b, is_overlap, bandwidth, rs)
+        if use_codes:
+            cigars = NR.decode_codes(qseqs[b], tseqs[b], codes_w, begs_p,
+                                     init_eo, b, is_overlap, bandwidth, rs)
+        else:
+            cigars = NR.backcal(qseqs[b], tseqs[b], init_row, us_p, es_p,
+                                qs_p, ub_p, begs_p, b, is_overlap, bandwidth,
+                                mtx8, gapo1, gape1, gapo2, gape2, piecewise,
+                                rs)
         out.append((rs, cigars))
     metrics.add("e2e_traceback", B, time.time() - t_tb0)
     return out
@@ -191,3 +273,107 @@ def _base_results(res, mode, W, tlens):
                 rs.te = int(tlens[b]) - 1
         rss.append(rs)
     return rss
+
+
+def _twopass_batch(T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
+                   gape2, smax, smin, qseqs, tseqs, fwd_args, Tc, fwd_cells,
+                   t_launch, device):
+    """Two-pass long-read alignment: a scores-only chunked forward keeps
+    each chunk's entry state (planes, anchors and registers, O(BW*B) per
+    chunk), then the chunks are re-forwarded in reverse order emitting
+    packed codes, which the native resumable walker consumes chunk by
+    chunk. The device holds O(Tc*B) codes and O(T/Tc) small checkpoints
+    instead of O(T*B) codes, so 50-100 kb targets run at full batch. The
+    re-forward of chunk k-1 is launched before chunk k is walked, so the
+    device DP overlaps the host traceback."""
+    (qpad, qlens, tpad, tlens, mtx5, rby, us0, es0, qs0, ub0) = fwd_args
+    B = len(qseqs)
+
+    def fwd(c0, c1, **kw):
+        return K8.make_forward(c1 - c0, W, mode, piecewise, gapo1, gape1,
+                               gapo2, gape2, smax, smin, device=device, **kw)
+
+    # ---- pass 1: scores-only forward, checkpointing chunk-entry state ----
+    ck = []
+    us, es, qs, ub, reg = us0, es0, qs0, ub0, None
+    res = None
+    for c0 in range(0, T, Tc):
+        c1 = min(c0 + Tc, T)
+        ck.append((us, es, qs, ub, reg))
+        res = fwd(c0, c1, scores_only=True)(
+            qpad, qlens, tpad[:, c0:c1], tlens, mtx5, rby[c0:c1], us, es, qs,
+            ub, init_reg=reg, row0=c0)
+        us, es, qs = (res.final_planes + [None, None])[:3]
+        ub, reg = res.final_ubegs, res.final_reg
+    metrics.add("banded8_fwd", fwd_cells, time.time() - t_launch)
+
+    rss = _base_results(res, mode, W, tlens)
+    init_row = O.row_init(mode, bandwidth, smax, smin, gapo1, gape1, gapo2,
+                          gape2)
+    init_eo = _init_eo(init_row, piecewise, gapo1, gape1, bandwidth)
+    is_overlap = mode_type(mode) == MODE_OVERLAP
+    qflat = np.ascontiguousarray(np.concatenate(
+        [np.asarray(q, np.uint8) for q in qseqs]))
+    tflat = np.ascontiguousarray(np.concatenate(
+        [np.asarray(t, np.uint8) for t in tseqs]))
+    qoffs = np.zeros(B + 1, np.int64)
+    qoffs[1:] = np.cumsum([len(q) for q in qseqs])
+    toffs = np.zeros(B + 1, np.int64)
+    toffs[1:] = np.cumsum([len(t) for t in tseqs])
+    st = NR.walk_init([rs.qe for rs in rss], [rs.te for rs in rss])
+    cg_buf = np.zeros((B, 2 * Tc + 64), np.uint32)
+    parts = [[] for _ in range(B)]
+
+    def walk_chunk(pend):
+        get, c0, c1, regk = pend
+        with metrics.timed("banded8_refwd", float(B) * (c1 - c0) * bandwidth):
+            r = get()
+            codes_c = np.ascontiguousarray(r.planes.codes.numpy())
+            begs_c = np.ascontiguousarray(r.planes.begs.numpy(), np.int32)
+        beg_prev = (np.zeros(B, np.int32) if regk is None else
+                    np.ascontiguousarray(np.asarray(regk)[0], np.int32))
+        NR.walk_codes_chunk(qflat, qoffs, tflat, toffs, codes_c, begs_c,
+                            beg_prev, init_eo, c0, c1, is_overlap, bandwidth,
+                            st, cg_buf)
+        for b in range(B):
+            n = int(st[b, NR.WK_NCG])
+            if n:
+                parts[b].append(cg_buf[b, :n].copy())
+
+    # ---- pass 2: reverse chunk re-forward (codes) + incremental walk ----
+    pend = None
+    for k in range(-(-T // Tc) - 1, -1, -1):
+        c0 = k * Tc
+        c1 = min(c0 + Tc, T)
+        usk, esk, qsk, ubk, regk = ck[k]
+        fwd_c = fwd(c0, c1, codes=True)
+        call, ops, meta = fwd_c.prepare(
+            qpad, qlens, tpad[:, c0:c1], tlens, mtx5, rby[c0:c1], usk, esk,
+            qsk, ubk, regk, c0)
+        outs = call(*ops)
+        get = (lambda fwd_c=fwd_c, outs=outs, meta=meta:
+               fwd_c.unpack(outs, *meta))
+        if pend is not None:
+            walk_chunk(pend)
+        pend = (get, c0, c1, regk)
+    walk_chunk(pend)
+
+    out = []
+    for b in range(B):
+        s = st[b]
+        if int(s[NR.WK_DONE]) != 1:
+            raise RuntimeError("chunked codes walk did not complete")
+        rs = rss[b]
+        rs.qb = int(s[NR.WK_QB]) + 1
+        rs.tb = int(s[NR.WK_TB]) + 1
+        rs.qe += 1
+        rs.te += 1
+        rs.mat = int(s[NR.WK_MAT])
+        rs.mis = int(s[NR.WK_MIS])
+        rs.ins = int(s[NR.WK_INS])
+        rs.dele = int(s[NR.WK_DEL])
+        rs.aln = int(s[NR.WK_ALN])
+        words = (np.concatenate(parts[b]) if parts[b]
+                 else np.zeros(0, np.uint32))
+        out.append((rs, [int(x) for x in words[::-1]]))
+    return out

@@ -7,6 +7,14 @@ default) runs the DP in the hand-written CUDA kernels and raises when no
 CUDA device is present; `cpu` runs their plain PyTorch versions. Input
 pairs of `align` and `edit` are consecutive FASTA/Q records (q, t, q, t,
 ...); `poa` takes one window's reads.
+
+`align` runs every gap model on the device: 2-piece gap costs (-Q/-P)
+through the banded-8 kernel's planes emit and the host's backcal, and
+targets longer than 4,096 rows in resumable row chunks (past 16,384 rows,
+a scores-only pass and then codes re-forwarded chunk by chunk). On the
+card, a band wider than the kernel's shared memory holds raises
+NotImplementedError: above about 58,000 at linear, 29,000 at affine and
+19,000 at 2-piece gaps, which `-W 0` reaches on long reads.
 """
 from __future__ import annotations
 

@@ -2,8 +2,10 @@
 
 The library is `rowops.cpp` in this directory, the port's own copy of the
 JAX package's host C++, kept unchanged so that the two packages' CIGARs,
-MSAs and consensus stay byte-identical. It holds the codes walker of
-`align` (`bsa_decode_codes`) and the POA engine's graph, row-DP, MSA,
+MSAs and consensus stay byte-identical. It holds the tracebacks of
+`align` (the codes walker `bsa_decode_codes`, its resumable row-chunk
+form `bsa_walk_codes_chunk` and the planes walk `bsa8_backcal`) and the
+POA engine's graph, row-DP, MSA,
 consensus and pedit-traceback entry points (wrapped in `rowops.py`). It is
 built with `g++ -O3 -fPIC` and linked with `g++ -shared` into this
 package's build directory on first use; a failed build raises.
@@ -31,6 +33,12 @@ _SIGNATURES = {
     "bsa_decode_codes": (
         [_P, _P, _P, ctypes.c_int, _P, _P, _L, _L, ctypes.c_int,
          ctypes.c_int, _P, _P, _L], _L),
+    "bsa8_backcal": (
+        [_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _L, _L]
+        + [ctypes.c_int] * 2 + [_P] + [ctypes.c_int] * 5 + [_P, _P, _L], _L),
+    "bsa_walk_codes_chunk": (
+        [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _L, _L, _L,
+         ctypes.c_int, ctypes.c_int, _P, _P, _L], _L),
     "bsa_align_rd_core": (
         [_P] * 12 + [_L] + [_P] * 8 + [_L] * 15 + [_P, _P, _L], _L),
     "bsa_pedit_forward": (

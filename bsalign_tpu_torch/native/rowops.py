@@ -45,6 +45,74 @@ def decode_codes(qseq, tseq, codes_w, begs_p, init_eo, b, is_overlap,
     return [int(x) for x in cg[:n]]
 
 
+def backcal(qseq, tseq, init_row, us_p, es_p, qs_p, ub_p, begs_p, b,
+            is_overlap, bandwidth, mtx, gapo1, gape1, gapo2, gape2,
+            piecewise, rs):
+    """Walk pair b's stored u/e/q planes with the reference's backcal
+    (bsalign.h:3704-3852): us_p/es_p/qs_p [T, BW, B] int8 (es_p and qs_p
+    None below piecewise 1 and 2), ub_p [T, ubr, B] int32, begs_p [T, B]
+    int32 and mtx [16] int8, all C-contiguous numpy. Mutates `rs`
+    (AlnResult) and returns the packed CIGAR list."""
+    lib = rowops_lib()
+    T, BW, B = us_p.shape
+    ubr = ub_p.shape[1]
+    init_us = np.ascontiguousarray(init_row.us, np.int8)
+    init_ub = np.ascontiguousarray(init_row.ubegs, np.int64)
+    stats = np.zeros(10, np.int64)
+    stats[0] = rs.score
+    stats[2] = rs.qe
+    stats[4] = rs.te
+    cg_cap = int(qseq.size + tseq.size + 8)
+    cg = np.zeros(cg_cap, np.uint32)
+    qc = np.ascontiguousarray(qseq, np.uint8)
+    tc = np.ascontiguousarray(tseq, np.uint8)
+    n = lib.bsa8_backcal(
+        qc.ctypes.data, len(qc), tc.ctypes.data, len(tc),
+        init_us.ctypes.data, init_ub.ctypes.data, us_p.ctypes.data,
+        None if es_p is None else es_p.ctypes.data,
+        None if qs_p is None else qs_p.ctypes.data,
+        ub_p.ctypes.data, ubr, begs_p.ctypes.data, B, b, int(is_overlap),
+        bandwidth, mtx.ctypes.data, gapo1, gape1, gapo2, gape2, piecewise,
+        stats.ctypes.data, cg.ctypes.data, cg_cap)
+    if n > cg_cap:
+        raise RuntimeError("cigar overflow")
+    _stats_rs(stats, rs)
+    return [int(x) for x in cg[:n]]
+
+
+WK_NST = 12        # per-pair walk-state slots (rowops.cpp WK_* enum)
+WK_QB, WK_TB, WK_PM, WK_DJ, WK_CG, WK_NCG = range(6)
+WK_MAT, WK_MIS, WK_INS, WK_DEL, WK_ALN, WK_DONE = range(6, 12)
+WK_NOJ = -(1 << 60)
+
+
+def walk_init(qe, te):
+    """Fresh walk-state array for the chunked codes walker: one row per
+    pair, started at (qe, te) like bsa_decode_codes' entry point."""
+    st = np.zeros((len(qe), WK_NST), np.int64)
+    st[:, WK_QB] = qe
+    st[:, WK_TB] = te
+    st[:, WK_DJ] = WK_NOJ
+    return st
+
+
+def walk_codes_chunk(qflat, qoffs, tflat, toffs, codes_c, begs_c, beg_prev,
+                     init_eo, t0, t1, is_overlap, bandwidth, st, cg_out):
+    """Advance all pairs' tracebacks through band rows [t0, t1) of one
+    re-forwarded chunk (codes_c [t1-t0, CPW, WS, B] int32 packed codes,
+    begs_c [t1-t0, B], beg_prev [B] the band offset of row t0-1). Mutates
+    st in place; the CIGAR words this call completes land in
+    cg_out[b, :st[b, WK_NCG]] in walk order."""
+    r = rowops_lib().bsa_walk_codes_chunk(
+        qflat.ctypes.data, qoffs.ctypes.data, tflat.ctypes.data,
+        toffs.ctypes.data, codes_c.ctypes.data, codes_c.shape[1],
+        begs_c.ctypes.data, beg_prev.ctypes.data, init_eo.ctypes.data,
+        st.shape[0], int(t0), int(t1), int(is_overlap), int(bandwidth),
+        st.ctypes.data, cg_out.ctypes.data, cg_out.shape[1])
+    if r != 0:
+        raise RuntimeError("cigar overflow in chunked codes walk")
+
+
 # ------------------------------------------------------------ POA graph
 def gfull_args(g):
     """Cached pointer pack over the graph's SoA arrays (invalidated by the

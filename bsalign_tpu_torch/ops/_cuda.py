@@ -30,7 +30,10 @@ PAIRS_PER_BLOCK = 2   # one warp per block: 256 pairs spread over 128 SMs
 EDIT_MAX_NW = 512     # widest edit band the kernel is built for (16384 bits)
 PEDIT_MAX_BW = 1022   # widest pedit band: bw + 2 cells, one thread each
 
-launches = 0          # kernel launches of bsa_banded8_codes in this process
+# kernel launches of bsa_banded8_rows in this process, by emit
+launches_codes = 0
+launches_planes = 0
+launches_none = 0
 edit_launches = 0     # kernel launches of bsa_edit_rows in this process
 pedit_launches = 0    # kernel launches of bsa_pedit_rows in this process
 build_seconds = 0.0
@@ -57,9 +60,9 @@ def lib():
             path, build_seconds = build_shared(
                 "kernels", srcs, [_nvcc()] + NVCC_FLAGS, [_nvcc(), "-shared"])
             so = ctypes.CDLL(path)
-            so.bsa_banded8_codes.argtypes = \
-                [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-            so.bsa_banded8_codes.restype = ctypes.c_int
+            so.bsa_banded8_rows.argtypes = \
+                [ctypes.c_void_p] * 23 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+            so.bsa_banded8_rows.restype = ctypes.c_int
             so.bsa_edit_rows.argtypes = \
                 [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             so.bsa_edit_rows.restype = ctypes.c_int
@@ -78,16 +81,22 @@ def _check(name, t, shape, kernel="banded8"):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def banded8_codes(g, st):
-    """Launch the banded-8 codes kernel for geometry g on state st (a
-    banded8.State on one CUDA device). Returns the raw outputs as device
-    tensors: codes, begs, fin_planes, fin_ub, fin_reg."""
-    global launches
-    if g.piecewise not in (0, 1) or not g.codes:
-        raise NotImplementedError("the banded-8 kernel emits codes for "
-                                  "piecewise 0/1 only")
+EMIT_CODE = {"codes": 0, "planes": 1, "none": 2}
+
+
+def banded8_rows(g, st):
+    """Launch the banded-8 kernel for geometry g (its emit: codes, planes or
+    none) on state st (a banded8.State on one CUDA device, resumed at
+    st.row0 from st.reg). Returns the raw outputs as device tensors, with
+    the keys of banded8.forward_plain."""
+    global launches_codes, launches_planes, launches_none
+    pw = g.piecewise
+    if g.emit not in EMIT_CODE or pw not in (0, 1, 2) \
+            or (g.emit == "codes" and pw == 2):
+        raise NotImplementedError(f"the banded-8 kernel has no emit "
+                                  f"{g.emit!r} at piecewise {pw}")
     B, QP = st.qpad.shape
-    T, W = g.T, g.W
+    T, W, BW = g.T, g.W, g.BW
     dev = st.qpad.device
     _check("qpad", st.qpad, (B, QP))
     _check("tseq", st.tseq, (B, T))
@@ -97,44 +106,61 @@ def banded8_codes(g, st):
     _check("mtx5", st.mtx5, (5, 4))
     _check("us", st.us, (W, WS, B))
     _check("ub", st.ub, (WS + 1, B))
-    if g.piecewise:
+    _check("reg", st.reg, (8, B))
+    if pw >= 1:
         _check("es", st.es, (W, WS, B))
-    smem = PAIRS_PER_BLOCK * 4 * W * WS
+    if pw == 2:
+        _check("qs", st.qs, (W, WS, B))
+    smem = PAIRS_PER_BLOCK * 2 * (pw + 1) * BW
     if smem > 227 * 1024:
-        raise NotImplementedError(f"band {g.BW} needs {smem} bytes of shared "
+        raise NotImplementedError(f"band {BW} needs {smem} bytes of shared "
                                   "memory per block, above the card's 227 KB")
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    codes = empty(T, g.CPW, WS, B)
-    begs = empty(T, B)
-    fin_us = empty(W, WS, B)
-    fin_es = empty(W, WS, B) if g.piecewise else None
-    fin_ub = empty(WS + 1, B)
-    fin_reg = empty(8, B)
+    out = dict(fin_planes=[empty(W, WS, B) for _ in range(pw + 1)],
+               fin_ub=empty(WS + 1, B), fin_reg=empty(8, B))
+    if g.emit != "none":
+        out["begs"] = empty(T, B)
+    if g.emit == "codes":
+        out["codes"] = empty(T, g.CPW, WS, B)
+    elif g.emit == "planes":
+        out["us"] = empty(T, BW, B, dtype=torch.int8)
+        out["es"] = empty(T, BW, B, dtype=torch.int8) if pw >= 1 else None
+        out["qs"] = empty(T, BW, B, dtype=torch.int8) if pw == 2 else None
+        out["ubegs"] = empty(T, WS + 1, B)
     mt = mode_type(g.mode)
     d_oh, c_oh = g.overhang()
+    fin = out["fin_planes"] + [None] * (2 - pw)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().bsa_banded8_codes(
+        rc = lib().bsa_banded8_rows(
             ptr(st.qpad), ptr(st.tseq), ptr(st.qlen), ptr(st.tlen),
             ptr(st.rbz), ptr(st.rby), ptr(st.mtx5), ptr(st.us),
-            ptr(st.es if g.piecewise else None), ptr(st.ub), ptr(codes),
-            ptr(begs), ptr(fin_us), ptr(fin_es), ptr(fin_ub), ptr(fin_reg),
-            B, QP, T, W, 0 if mt == MODE_GLOBAL else
-            (1 if mt == MODE_OVERLAP else 2), g.piecewise, g.gapo1, g.gape1,
-            g.gape2, d_oh, c_oh, PAIRS_PER_BLOCK, stream)
+            ptr(st.es if pw >= 1 else None), ptr(st.qs if pw == 2 else None),
+            ptr(st.ub), ptr(st.reg),
+            *(ptr(out.get(k)) for k in ("codes", "us", "es", "qs", "ubegs",
+                                        "begs")),
+            *(ptr(t) for t in fin), ptr(out["fin_ub"]), ptr(out["fin_reg"]),
+            B, QP, T,
+            int(st.row0), W, 0 if mt == MODE_GLOBAL else
+            (1 if mt == MODE_OVERLAP else 2), pw, EMIT_CODE[g.emit],
+            g.gapo1, g.gape1, g.gapo2, g.gape2, d_oh, c_oh, PAIRS_PER_BLOCK,
+            stream)
     if rc != 0:
         raise RuntimeError(f"banded8 kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return dict(codes=codes, begs=begs,
-                fin_planes=[t for t in (fin_us, fin_es) if t is not None],
-                fin_ub=fin_ub, fin_reg=fin_reg)
+    if g.emit == "codes":
+        launches_codes += 1
+    elif g.emit == "planes":
+        launches_planes += 1
+    else:
+        launches_none += 1
+    return out
 
 
 def edit_rows(g, ops):
@@ -210,16 +236,19 @@ def pedit_rows(pk):
 
 
 def to_host_async(raw, inputs):
-    """Queue copies of the raw outputs into pinned host memory behind the
-    launch on the current stream, with an event that marks their end. The
-    launch's input tensors are held until the event has been waited for."""
+    """Queue copies of the raw outputs (tensors, lists of tensors or None)
+    into pinned host memory behind the launch on the current stream, with
+    an event that marks their end. The launch's input tensors are held
+    until the event has been waited for."""
     def cp(t):
+        if t is None:
+            return None
+        if isinstance(t, list):
+            return [cp(x) for x in t]
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t, non_blocking=True)
         return h
-    out = dict(codes=cp(raw["codes"]), begs=cp(raw["begs"]),
-               fin_planes=[cp(t) for t in raw["fin_planes"]],
-               fin_ub=cp(raw["fin_ub"]), fin_reg=cp(raw["fin_reg"]))
+    out = {k: cp(v) for k, v in raw.items()}
     ev = torch.cuda.Event()
     ev.record()
     out["_event"] = ev

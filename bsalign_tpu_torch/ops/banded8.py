@@ -4,14 +4,22 @@ the wrapper of its hand-written CUDA kernel (csrc/banded8.cu).
 The plain version is a literal port of bsalign_tpu.ops.banded8_jax's
 make_forward (bsalign.h:2084-4050) to eager torch on batch-minor
 [W, WS, B] int32 tensors, with the int8 saturating arithmetic emulated in
-int32, plus the packed traceback-code emission of the Pallas kernel
-(banded8_pallas.calc_codes). It runs on any device, one Python step per
-stripe, and serves the CPU path and the tests. On a CUDA device
-`make_forward` launches the kernel instead, and never falls back.
+int32, plus the packed traceback-code emission and the resume registers of
+the Pallas kernel (banded8_pallas.calc_codes, make_forward.prepare). It
+runs on any device, one Python step per stripe, and serves the CPU path
+and the tests. On a CUDA device `make_forward` launches the kernel
+instead, and never falls back.
+
+A forward emits one of three kinds of per-row output (`Geometry.emit`):
+"codes" (packed traceback codes, piecewise 0/1), "planes" (the int8
+u/e/q difference planes and stripe anchors that backcal reads) or "none"
+(scores only). Every emit also returns the final planes, anchors and the
+[8, B] register, from which a later call resumes at global row `row0`.
 
 Rows past a pair's tlen freeze its state: the band does not move, the
-row's codes are 0 and its begs entry repeats the frozen rbeg. The kernel
-emits the same, so the two versions agree on every word.
+row's codes, planes and anchors are 0 and its begs entry repeats the
+frozen rbeg. The kernel emits the same, so the two versions agree on
+every word.
 """
 from __future__ import annotations
 
@@ -28,14 +36,15 @@ I32 = torch.int32
 MIN8 = SCORE_EPI8_MIN  # -63
 NEGK = -(1 << 30)      # "no predecessor": never satisfies a score identity
 CODES_CAP_BYTES = 4 << 30   # largest codes buffer one launch may hold
+EMITS = ("codes", "planes", "none")
 
 
 class RowPlanes(NamedTuple):
-    us: Optional[torch.Tensor]     # [T, W*WS, B] int8 (None in codes mode)
+    us: Optional[torch.Tensor]     # [T, W*WS, B] int8 (planes mode only)
     es: Optional[torch.Tensor]     # [T, W*WS, B] int8 or None
     qs: Optional[torch.Tensor]
-    ubegs: Optional[torch.Tensor]  # [T, WS+1, B] int32 (None in codes mode)
-    begs: torch.Tensor             # [T, B] int32
+    ubegs: Optional[torch.Tensor]  # [T, WS+1, B] int32 (planes mode only)
+    begs: Optional[torch.Tensor]   # [T, B] int32 (None in none mode)
     # packed 4-bit traceback codes [T, ceil(W/8), WS, B] int32, 8 cells
     # per word along the stripe axis (bsalign_tpu/align/btcodes.py)
     codes: Optional[torch.Tensor] = None
@@ -55,7 +64,8 @@ class ForwardResult(NamedTuple):
 
 
 class Geometry(NamedTuple):
-    """Fixed shape and costs of one forward (the make_forward arguments)."""
+    """Fixed shape and costs of one forward (the make_forward arguments).
+    T counts the rows of this call; emit is one of EMITS."""
     T: int
     W: int
     mode: int
@@ -66,7 +76,7 @@ class Geometry(NamedTuple):
     gape2: int
     nt_max: int
     nt_min: int
-    codes: bool
+    emit: str
 
     @property
     def BW(self) -> int:
@@ -91,7 +101,8 @@ class Geometry(NamedTuple):
 
 
 class State(NamedTuple):
-    """Forward operands on one device, int32 and contiguous."""
+    """Forward operands on one device, int32 and contiguous. tseq and rby
+    hold this call's rows; global row row0 + r is local row r."""
     qpad: torch.Tensor    # [B, QP] query codes, 4-padded
     qlen: torch.Tensor    # [B]
     tseq: torch.Tensor    # [B, T] target codes
@@ -103,16 +114,34 @@ class State(NamedTuple):
     es: Optional[torch.Tensor]
     qs: Optional[torch.Tensor]
     ub: torch.Tensor      # [WS+1, B] init stripe anchors
+    reg: torch.Tensor     # [8, B] init registers (ForwardResult.final_reg)
+    row0: int = 0         # global index of this call's first row
+
+
+def fresh_reg(B: int) -> np.ndarray:
+    """The registers of a run's first row: band at 0, no move, no best
+    score yet (slot 3 at SCORE_MIN, as banded8_pallas prepare sets it)."""
+    reg = np.zeros((8, B), np.int32)
+    reg[3] = SCORE_MIN
+    return reg
 
 
 def state_from_numpy(qpad, qlen, tseq, tlen, mtx5, rby, init_us, init_es,
-                     init_qs, init_ub, *, T: int, device) -> State:
-    """Put the numpy operands of bsalign_tpu's _pack_batch/_init_state on
-    `device` in the layout both forward versions read. rbz is computed
-    here on the host, like the Pallas wrapper does for padded pairs."""
+                     init_qs, init_ub, init_reg=None, row0: int = 0, *,
+                     T: int, device) -> State:
+    """Put the operands of bsalign_tpu's _pack_batch/_init_state (numpy
+    arrays, or tensors on any device) on `device` in the layout both
+    forward versions read. init_reg and row0 resume a run from an earlier
+    call's final registers (None: fresh_reg); slot 2 is not read. rbz is
+    computed here on the host, like the Pallas wrapper does for padded
+    pairs."""
     def t(a):
-        return None if a is None else torch.as_tensor(
-            np.ascontiguousarray(a, np.int32), device=device)
+        if a is None:
+            return None
+        if isinstance(a, torch.Tensor):
+            return a.to(device=device, dtype=I32).contiguous()
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                               device=device)
     qlen_np = np.asarray(qlen, np.int32)
     tlen_np = np.asarray(tlen, np.int32)
     rbz = 2 * np.maximum(tlen_np // np.maximum(qlen_np, 1), 1)
@@ -120,9 +149,10 @@ def state_from_numpy(qpad, qlen, tseq, tlen, mtx5, rby, init_us, init_es,
     rby_np = np.asarray(rby, np.int32)
     if tseq_np.shape[1] < T or rby_np.shape[0] < T:
         raise ValueError(f"tseq/rby hold fewer than T={T} rows")
+    reg = fresh_reg(len(qlen_np)) if init_reg is None else init_reg
     return State(t(qpad), t(qlen_np), t(tseq_np[:, :T]), t(tlen_np), t(rbz),
                  t(mtx5), t(rby_np[:T]), t(init_us), t(init_es), t(init_qs),
-                 t(np.asarray(init_ub)[:WS + 1]))
+                 t(init_ub[:WS + 1]), t(reg), int(row0))
 
 
 # ---------------------------------------------------------------- plain ----
@@ -438,14 +468,17 @@ def calc_codes(g: Geometry, us0, es0, ub0, us1, es1, ub1, qp, rh_move, inner,
 
 
 def forward_plain(g: Geometry, st: State):
-    """The plain forward on st's device. Returns a dict of raw outputs:
-    codes [T, CPW, WS, B] (codes mode) or planes us/es/qs [T, BW, B] int8
-    and ubegs [T, WS+1, B] (planes mode), begs [T, B], the final planes,
+    """The plain forward on st's device, over st's T rows from global row
+    st.row0. Returns a dict of raw outputs: codes [T, CPW, WS, B] (codes
+    emit) or planes us/es/qs [T, BW, B] int8 and ubegs [T, WS+1, B]
+    (planes emit), begs [T, B] (both), and in every emit the final planes,
     anchors and registers."""
     W, BW, T = g.W, g.BW, g.T
     mt = mode_type(g.mode)
     pw = g.piecewise
-    if g.codes and pw == 2:
+    if g.emit not in EMITS:
+        raise ValueError(f"emit must be one of {EMITS}, got {g.emit!r}")
+    if g.emit == "codes" and pw == 2:
         raise ValueError("codes mode covers piecewise 0/1 only")
     B = st.qpad.shape[0]
     dev = st.qpad.device
@@ -453,12 +486,12 @@ def forward_plain(g: Geometry, st: State):
         st.qs if pw == 2 else None, st.ub
     qlen, tlen = st.qlen, st.tlen
     zi = torch.zeros(B, dtype=I32, device=dev)
-    rbeg, mov = zi, zi
-    best_s = torch.full((B,), SCORE_MIN, dtype=I32, device=dev)
-    best_qe, best_te = zi, zi
+    rbeg, mov = st.reg[0], st.reg[1]
+    best_s, best_qe, best_te = st.reg[3], st.reg[4], st.reg[5]
     codes_o, begs_o = [], []
     us_o, es_o, qs_o, ub_o = [], [], [], []
-    for i in range(T):
+    for r in range(T):
+        i = st.row0 + r          # global row; tseq and rby hold local rows
         active = i < tlen
         cond_move = (mov > 0) & (rbeg + BW < qlen)
         mov_eff = torch.where(
@@ -476,7 +509,7 @@ def forward_plain(g: Geometry, st: State):
         rh = torch.where(cond_move, rh_move, rh_nomove)
 
         us0, es0, qs0, ub0 = _movx(us, es, qs, ub, mov_eff, g)
-        qprof = _qprof_row(st.qpad, rbeg_n, st.tseq[:, i], st.mtx5, W)
+        qprof = _qprof_row(st.qpad, rbeg_n, st.tseq[:, r], st.mtx5, W)
         us1, es1, qs1, ub1 = _row_cal(g, qprof, us0, es0, qs0, ub0, rh)
 
         # adaptive band + global diagonal steering (bsalign.h:4006-4021)
@@ -487,7 +520,7 @@ def forward_plain(g: Geometry, st: State):
             D = qlen + rbz - 1 - rbeg_n - BW
             quick = (D >= 0) & (m1 <= torch.div(D, rbz, rounding_mode="floor"))
             movq = _u32_div_plus1(qlen - (rbeg_n + BW), m1.clamp(min=1))
-            rby_i = st.rby[i]
+            rby_i = st.rby[r]
             mov_n = torch.where(
                 quick, movq,
                 torch.where(rbeg_n < rby_i - BW, rbx + 1,
@@ -505,18 +538,18 @@ def forward_plain(g: Geometry, st: State):
             best_qe = torch.where(upd, qlen - 1, best_qe)
             best_te = torch.where(upd, i, best_te)
 
-        if g.codes:
+        if g.emit == "codes":
             cw = calc_codes(g, us0, es0, ub0, us1, es1, ub1, qprof[:W],
                             rh_move, inner, mov_eff, rbeg_n, qlen)
             codes_o.append(torch.where(active, cw, 0).to(I32))
-        else:
-            us_o.append(us1.to(torch.int8).reshape(BW, B))
-            if pw >= 1:
-                es_o.append(es1.to(torch.int8).reshape(BW, B))
-            if pw == 2:
-                qs_o.append(qs1.to(torch.int8).reshape(BW, B))
-            ub_o.append(ub1)
-        begs_o.append(rbeg_n)
+        elif g.emit == "planes":
+            for out, p in ((us_o, us1), (es_o, es1), (qs_o, qs1)):
+                if p is not None:
+                    out.append(torch.where(active, p, 0).to(torch.int8)
+                               .reshape(BW, B))
+            ub_o.append(torch.where(active, ub1, 0).to(I32))
+        if g.emit != "none":
+            begs_o.append(rbeg_n)
 
         # freeze inactive pairs
         us = torch.where(active, us1, us)
@@ -527,13 +560,14 @@ def forward_plain(g: Geometry, st: State):
         mov = torch.where(active, mov_n, mov)
 
     reg = torch.stack([rbeg, mov, zi, best_s, best_qe, best_te, zi, zi], 0)
-    out = dict(begs=torch.stack(begs_o, 0).to(I32),
-               fin_planes=[p.to(I32).contiguous() for p in (us, es, qs)
+    out = dict(fin_planes=[p.to(I32).contiguous() for p in (us, es, qs)
                            if p is not None],
                fin_ub=ub.to(I32).contiguous(), fin_reg=reg.to(I32))
-    if g.codes:
+    if g.emit != "none":
+        out["begs"] = torch.stack(begs_o, 0).to(I32)
+    if g.emit == "codes":
         out["codes"] = torch.stack(codes_o, 0)
-    else:
+    elif g.emit == "planes":
         out["us"] = torch.stack(us_o, 0)
         out["es"] = torch.stack(es_o, 0) if pw >= 1 else None
         out["qs"] = torch.stack(qs_o, 0) if pw == 2 else None
@@ -545,26 +579,28 @@ def forward_plain(g: Geometry, st: State):
 
 def forward_raw(g: Geometry, st: State):
     """Raw forward outputs on the device st lies on: the hand-written CUDA
-    kernel for CUDA tensors (it launches or raises, codes for piecewise
-    0/1 only), the plain version for CPU tensors."""
+    kernel for CUDA tensors (it launches or raises), the plain version for
+    CPU tensors."""
     if st.qpad.is_cuda:
         from . import _cuda
-        return _cuda.banded8_codes(g, st)
+        return _cuda.banded8_rows(g, st)
     return forward_plain(g, st)
 
 
 def check_codes_size(g: Geometry, B: int) -> None:
+    """Refuse a codes buffer past CODES_CAP_BYTES: align/pairwise.py cuts
+    long targets into row chunks of T_CHUNK rows before it gets there."""
     nbytes = g.T * g.CPW * WS * B * 4
     if nbytes > CODES_CAP_BYTES:
         raise NotImplementedError(
             f"codes buffer of {nbytes} bytes (T={g.T}, W={g.W}, B={B}) exceeds "
-            f"the {CODES_CAP_BYTES}-byte cap: row-chunked forwards are "
-            "ROADMAP item A3 (resume across row chunks)")
+            f"the {CODES_CAP_BYTES}-byte cap: run fewer rows per call")
 
 
 def finish(g: Geometry, raw, qlen, tlen) -> ForwardResult:
     """ForwardResult from raw outputs (on any device). The global score is
-    read from the final state, as the Pallas wrapper does (:1316-1326)."""
+    read from the final state, as the Pallas wrapper does (:1316-1326);
+    mid-run chunked calls clip the corner, and their score is unused."""
     W, BW = g.W, g.BW
     fin = raw["fin_planes"]
     fin_us, fin_ub, reg = fin[0], raw["fin_ub"], raw["fin_reg"]
@@ -579,34 +615,42 @@ def finish(g: Geometry, raw, qlen, tlen) -> ForwardResult:
     else:
         score, qe, te = reg[3], reg[4], reg[5]
     planes = RowPlanes(raw.get("us"), raw.get("es"), raw.get("qs"),
-                       raw.get("ubegs"), raw["begs"], raw.get("codes"))
+                       raw.get("ubegs"), raw.get("begs"), raw.get("codes"))
     return ForwardResult(planes, score, qe, te, fin_us, fin_ub, rbeg,
                          fin, reg)
 
 
 def make_forward(T: int, W: int, mode: int, piecewise: int, gapo1: int,
                  gape1: int, gapo2: int, gape2: int, nt_max: int, nt_min: int,
-                 *, codes: bool = True, device="cpu"):
-    """The batched forward for fixed geometry and costs on `device`.
+                 *, scores_only: bool = False, codes: bool = False, device):
+    """The batched forward for fixed geometry and costs on `device`, with
+    banded8_pallas.make_forward's arguments: it emits packed codes
+    (codes=True, piecewise 0/1), no per-row output (scores_only=True) or
+    else the u/e/q planes.
 
-    On a CUDA device it launches the hand-written kernel (codes mode,
-    piecewise 0/1); on the CPU it runs the plain version. The returned
-    function takes the numpy operands of bsalign_tpu's _pack_batch and
-    _init_state and returns a ForwardResult of tensors on the host.
-    `forward.prepare` and `forward.unpack` split it for asynchronous
-    launches: `outs = call(*ops)` starts the device, `unpack(outs, *meta)`
-    waits for this launch's results alone."""
+    On a CUDA device it launches the hand-written kernel; on the CPU it
+    runs the plain version. The returned function takes the operands of
+    bsalign_tpu's _pack_batch and _init_state (numpy arrays or host
+    tensors), then optionally init_reg and row0 to resume at global row
+    row0 from an earlier call's final state, and returns a ForwardResult
+    of tensors on the host. `forward.prepare` and `forward.unpack` split
+    it for asynchronous launches: `outs = call(*ops)` starts the device,
+    `unpack(outs, *meta)` waits for this launch's results alone."""
+    emit = "none" if scores_only else ("codes" if codes else "planes")
+    if emit == "codes" and piecewise == 2:
+        raise ValueError("codes mode covers piecewise 0/1 only")
     g = Geometry(T, W, mode, piecewise, gapo1, gape1, gapo2, gape2, nt_max,
-                 nt_min, bool(codes))
+                 nt_min, emit)
     device = torch.device(device)
 
     def prepare(qpad, qlen, tseq, tlen, mtx5, rby, init_us, init_es,
-                init_qs, init_ub):
+                init_qs, init_ub, init_reg=None, row0=0):
         B = len(qlen)
-        if g.codes:
+        if emit == "codes":
             check_codes_size(g, B)
         st = state_from_numpy(qpad, qlen, tseq, tlen, mtx5, rby, init_us,
-                              init_es, init_qs, init_ub, T=T, device=device)
+                              init_es, init_qs, init_ub, init_reg, row0, T=T,
+                              device=device)
         lens = (torch.as_tensor(np.asarray(qlen, np.int32)),
                 torch.as_tensor(np.asarray(tlen, np.int32)))
         return call, (st,), lens
@@ -624,8 +668,8 @@ def make_forward(T: int, W: int, mode: int, piecewise: int, gapo1: int,
             raw = _cuda.wait_host(raw)
         return finish(g, raw, qlen, tlen)
 
-    def forward(*args):
-        c, ops, meta = prepare(*args)
+    def forward(*args, init_reg=None, row0=0):
+        c, ops, meta = prepare(*args, init_reg=init_reg, row0=row0)
         return unpack(c(*ops), *meta)
 
     forward.prepare = prepare

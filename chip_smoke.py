@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
    library (g++: the codes walker and the POA engine), with their build
    seconds.
 2. Banded-8 kernel against its plain PyTorch version, both on the card, on
-   seeded pairs at 10% error: codes, begs, score/qe/te and the final state
-   must agree bit for bit (tolerance 0: the arithmetic is integer).
+   seeded pairs at 10% error (64 x 1 kb at band 128, 8 x 600 bp at band
+   640, a full reset at band 16): codes, begs, score/qe/te and the final
+   state must agree bit for bit (tolerance 0: the arithmetic is integer).
 3. The align main path: `align_batch` on 512 pairs x 2 kb, global, band
    128, -M 2 -X 6 -O 3 -E 2. The banded-8 kernel's launch count over that
    run must be at least 2 (two DEVICE_CHUNKs), and the TSV of the first 32
@@ -46,8 +47,32 @@ Phases, in order; any failure exits non-zero:
    / apply seconds. Then the `poa` CLI on one window prints the same bytes
    with --device cuda and --device cpu.
 
-The line before the last is a JSON object with each kernel's launches on
-its main path, error, times and bound; the last line is {"ok": true,
+9. The banded-8 kernel's planes and scores-only (none) emits against the
+   plain version, both on the card, tolerance 0: planes at piecewise
+   0/1/2 x global/overlap/extend on 16 x 500 bp at band 128 (every plane,
+   anchor and begs row, score/qe/te and the final state); none at
+   piecewise 0/1/2, whose score and final state also equal the codes and
+   planes runs'; piecewise 2 at band 16 with qlen >> tlen (full reset);
+   each emit run in resumed chunks of 256 rows over T = 1,024 against its
+   one-shot run, and the plain version in the same chunks against it.
+10. The 2-piece main path: `align_batch` on 512 x 2 kb, global, band 128,
+   map-ont costs (-M 2 -X 4 -O 4 -E 2 -Q 24 -P 1) through the planes emit
+   and backcal. At least 2 planes launches, the TSV of the first 32 pairs
+   equal to the CPU path; the planes kernel against the plain version at
+   the main path's launch shape, its time, cells/s, pairs/s and the fetch.
+11. Long reads: `align_batch` on 256 pairs x 50 kb, global, band 128,
+   -M 2 -X 6 -O 3 -E 2: T = 50,048 rows, so the two-pass mode, with
+   ceil(T / T_CHUNK) scores-only launches and as many codes re-forwards.
+   Every AlnResult and CIGAR equals the one-shot run (T_CHUNK and
+   REALIGN_T raised: one codes launch of all rows). The none kernel
+   against the plain version at the first chunk's shape. Then 16 pairs x
+   20 kb with the map-ont costs through the chunked planes path, equal to
+   its one-shot planes run. Prints each pass's time, the walk, pairs/s
+   and the peak device memory of both runs.
+
+Each phase prints the seconds since the start when it ends. The line
+before the last is a JSON object with each kernel's launches on its main
+path, error, times and bound; the last line is {"ok": true,
 "device": {...}}. Without a CUDA device, or without the repository beside
 it, the script fails and prints no result. It imports neither jax nor
 bsalign_tpu.
@@ -73,10 +98,13 @@ SEED = 20261016
 # kernels' source per unit of work this run's data needs:
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# banded-8, piecewise 1, codes: per DP cell about 15 ops in pass 1, 28 in
-# pass 2, 20 in the code pass and 2 for the query score (saturating int8
-# arithmetic as add + min + max)
+# banded-8, per DP cell (saturating int8 arithmetic as add + min + max):
+# piecewise 1 with codes about 15 ops in pass 1, 28 in pass 2, 20 in the
+# code pass and 2 for the query score; without the code pass (none) 45;
+# piecewise 2 (planes) 30 in pass 1, 50 in pass 2 and 2 for the query
 BANDED8_OPS_PER_CELL = 65
+BANDED8_NONE_OPS_PER_CELL = 45
+BANDED8_PLANES_OPS_PER_CELL = 82
 # edit: per plane word and row, 3 for the Eq window, 21 for the Myers step
 # with the carry, 3 for the one-bit shifts
 EDIT_OPS_PER_WORD_ROW = 27
@@ -114,6 +142,29 @@ def gen_pairs(n, length, err=0.10, seed=0):
                 q.append(int(t[i]))
                 i += 1
         qs.append(np.array(q, np.uint8))
+        ts.append(t)
+    return qs, ts
+
+
+def gen_pairs_fast(n, length, err=0.10, seed=0):
+    """gen_pairs' error model, vectorised for long reads: before each
+    target base a geometric run of random inserted bases, then the base
+    is substituted, deleted or kept with gen_pairs' odds."""
+    rng = np.random.default_rng(seed)
+    p_sub, p_ins, p_del = err * 0.23, err * 0.31, err * 0.46
+    qs, ts = [], []
+    for _ in range(n):
+        t = rng.integers(0, 4, length).astype(np.uint8)
+        k = rng.geometric(1 - p_ins, length) - 1          # insertions
+        r = rng.random(length) * (1 - p_ins)
+        keep = (r >= p_sub + p_del) | (r < p_sub)
+        val = np.where(r < p_sub, (t + rng.integers(1, 4, length)) & 3, t)
+        cnt = k + keep
+        owner = np.repeat(np.arange(length), cnt)
+        first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        ins = np.arange(len(owner)) - first < k[owner]
+        q = np.where(ins, rng.integers(0, 4, len(owner)), val[owner])
+        qs.append(q.astype(np.uint8))
         ts.append(t)
     return qs, ts
 
@@ -167,6 +218,23 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def banded8_work(g, st, out):
+    """(bytes, cells) one banded-8 launch must move and compute: of the
+    inputs, each pair's query window that its band reaches in this call
+    (from its first band offset to its last plus the band and one stripe)
+    and the other operands whole; of the outputs, every tensor the launch
+    writes; cells are the rows below each pair's tlen times the band."""
+    import torch
+    qp = st.qpad.shape[1]
+    reach = (out["fin_reg"][0] - st.reg[0] + g.BW + g.W + 1).clamp(max=qp)
+    ins = 4 * int(reach.sum()) + nbytes(*[t for t in st[1:]
+                                          if isinstance(t, torch.Tensor)])
+    outs = nbytes(*[t for k, v in out.items() if k != "fin_planes"
+                    for t in [v] if t is not None], *out["fin_planes"])
+    rows = (st.tlen - st.row0).clamp(0, g.T)
+    return ins + outs, float(rows.sum()) * g.BW
+
+
 def edit_bytes(g, ops):
     """Bytes one edit launch must move for this data: of the inputs, qlen
     and tlen, tseq on rows below each pair's tlen, the query words that
@@ -216,6 +284,14 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.set_num_threads(min(8, os.cpu_count() or 1))
+    t_start = time.time()
+
+    def stamp(phase):
+        print(f"phase{phase} done at {time.time() - t_start:.1f}s")
+
+    def reset_counts():
+        _cuda.launches_codes = _cuda.launches_planes = 0
+        _cuda.launches_none = _cuda.edit_launches = _cuda.pedit_launches = 0
 
     # ---- phase 1: environment and builds ----
     name = torch.cuda.get_device_name(0)
@@ -231,16 +307,18 @@ def main() -> int:
     native.rowops_lib()
     print(f"build: kernels {_cuda.build_seconds:.1f}s (nvcc sm_90a), "
           f"walker {native.build_seconds:.1f}s (g++)")
+    stamp(1)
 
     mtx = O.set_score_matrix(2, -6)
     smax, smin = int(mtx.max()), int(mtx.min())
 
-    def operands(qs, ts, mode, bw, gaps):
+    def operands(qs, ts, mode, bw, gaps, emit="codes", mtx=mtx):
         pw = O.get_piecewise(*gaps, bw)
+        smax, smin = int(mtx.max()), int(mtx.min())
         qpad, qlens, tpad, tlens, rby, T = P._pack_batch(qs, ts, bw)
         us, es, qs0, ub, _ = P._init_state(mode, bw, pw, smax, smin, *gaps,
                                            len(qs))
-        g = K.Geometry(T, bw // 16, mode, pw, *gaps, smax, smin, True)
+        g = K.Geometry(T, bw // 16, mode, pw, *gaps, smax, smin, emit)
         st = K.state_from_numpy(qpad, qlens, tpad, tlens, P._mtx5(mtx), rby,
                                 us, es, qs0, ub, T=T, device=dev)
         return g, st
@@ -257,46 +335,54 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def diff_raw(g, st, ra, rb):
+        """Max |diff| over every output word of two raw results of one
+        geometry (0 when bit-exact) and the disagreements: the per-row
+        outputs of the emit, the final planes, anchors and registers, and
+        score/qe/te."""
+        if sorted(ra) != sorted(rb):
+            return 1 << 30, [f"keys {sorted(ra)} vs {sorted(rb)}"]
+        pairs = [(k, ra[k], rb[k]) for k in sorted(ra)
+                 if k != "fin_planes" and ra[k] is not None]
+        pairs += [(f"fin_plane{k}", a, b) for k, (a, b) in
+                  enumerate(zip(ra["fin_planes"], rb["fin_planes"]))]
+        fa = K.finish(g, ra, st.qlen, st.tlen)
+        fb = K.finish(g, rb, st.qlen, st.tlen)
+        pairs += [("score", fa.score, fb.score), ("qe", fa.qe, fb.qe),
+                  ("te", fa.te, fb.te)]
+        worst, bad = 0, []
+        for nm, a, b in pairs:
+            if a.shape != b.shape:
+                bad.append(f"{nm} shape {tuple(a.shape)} vs {tuple(b.shape)}")
+                worst = 1 << 30
+                continue
+            d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            worst = max(worst, d)
+            if d:
+                bad.append(f"{nm} max|diff| {d}")
+        return worst, bad
+
     def compare(g, st):
         """Kernel vs plain on the same device tensors; returns max |diff|
         over every output word (0 when bit-exact), the disagreements, and
         the plain version's milliseconds."""
-        rk = _cuda.banded8_codes(g, st)
+        rk = _cuda.banded8_rows(g, st)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         rp = K.forward_plain(g, st)
         e1.record()
         torch.cuda.synchronize()
-        worst = 0
-        pairs = [("codes", rk["codes"], rp["codes"]),
-                 ("begs", rk["begs"], rp["begs"]),
-                 ("fin_ub", rk["fin_ub"], rp["fin_ub"]),
-                 ("fin_reg", rk["fin_reg"], rp["fin_reg"])]
-        pairs += [(f"fin_plane{k}", a, b) for k, (a, b) in
-                  enumerate(zip(rk["fin_planes"], rp["fin_planes"]))]
-        fk = K.finish(g, rk, st.qlen, st.tlen)
-        fp = K.finish(g, rp, st.qlen, st.tlen)
-        pairs += [("score", fk.score, fp.score), ("qe", fk.qe, fp.qe),
-                  ("te", fk.te, fp.te)]
-        bad = []
-        for nm, a, b in pairs:
-            if a.shape != b.shape:
-                bad.append(f"{nm} shape {tuple(a.shape)} vs {tuple(b.shape)}")
-                continue
-            d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
-            worst = max(worst, d)
-            if d:
-                bad.append(f"{nm} max|diff| {d}")
+        worst, bad = diff_raw(g, st, rk, rp)
         return worst, bad, e0.elapsed_time(e1)
 
     # ---- phase 2: kernel against the plain version on the card ----
     cases = [
-        ("64x2kb band128 global pw1", 64, 2000, 128, MODE_GLOBAL,
+        ("64x1kb band128 global pw1", 64, 1000, 128, MODE_GLOBAL,
          (-3, -2, 0, 0), 1),
-        ("64x2kb band128 overlap pw1", 64, 2000, 128, MODE_OVERLAP,
+        ("64x1kb band128 overlap pw1", 64, 1000, 128, MODE_OVERLAP,
          (-3, -2, 0, 0), 2),
-        ("64x2kb band128 extend pw0", 64, 2000, 128, MODE_EXTEND,
+        ("64x1kb band128 extend pw0", 64, 1000, 128, MODE_EXTEND,
          (0, -4, 0, 0), 3),
         ("8x600bp band640 overlap pw1", 8, 600, 640, MODE_OVERLAP,
          (-3, -2, 0, 0), 4),
@@ -307,7 +393,7 @@ def main() -> int:
         g, st = operands(qs, ts, mode, bw, gaps)
         err, bad, p_ms = compare(g, st)
         max_err = max(max_err, err)
-        k_ms = timed_ms(lambda: _cuda.banded8_codes(g, st), 5)
+        k_ms = timed_ms(lambda: _cuda.banded8_rows(g, st), 5)
         print(f"phase2 {label}: W={g.W} T={g.T} max_abs_err={err}; "
               f"kernel {k_ms:.3f} ms, plain on the card {p_ms:.1f} ms")
         if bad:
@@ -324,6 +410,7 @@ def main() -> int:
     if bad:
         return fail("phase 2 full reset: kernel disagrees with plain: "
                     + "; ".join(bad))
+    stamp(2)
 
     # ---- phase 3: the main path ----
     gaps = (-3, -2, 0, 0)
@@ -336,14 +423,11 @@ def main() -> int:
     if bad:
         return fail("phase 3 chunk: kernel disagrees with plain: "
                     + "; ".join(bad))
-    kernel_ms = timed_ms(lambda: _cuda.banded8_codes(g_main, st_main), 5)
-    cells = float(sum(len(t) for t in ts[:P.DEVICE_CHUNK])) * bw
-    rk = _cuda.banded8_codes(g_main, st_main)
+    kernel_ms = timed_ms(lambda: _cuda.banded8_rows(g_main, st_main), 5)
+    b_bytes, cells = banded8_work(g_main, st_main,
+                                  _cuda.banded8_rows(g_main, st_main))
     b8_bound_ms, b8_bound_by, b8_bound_text = bound(
-        nbytes(*st_main) + nbytes(rk["codes"], rk["begs"], rk["fin_ub"],
-                                  rk["fin_reg"], *rk["fin_planes"]),
-        cells * BANDED8_OPS_PER_CELL)
-    del rk
+        b_bytes, cells * BANDED8_OPS_PER_CELL)
     print(f"phase3 kernel: {kernel_ms:.3f} ms per launch of "
           f"{P.DEVICE_CHUNK} pairs (T={g_main.T}, W={g_main.W}), "
           f"{cells / (kernel_ms / 1e3):.4g} cells/s; plain on the card "
@@ -352,12 +436,12 @@ def main() -> int:
 
     torch.cuda.synchronize()
     metrics.reset()
-    _cuda.launches = _cuda.edit_launches = _cuda.pedit_launches = 0
+    reset_counts()
     t0 = time.time()
     res_gpu = P.align_batch(qs, ts, MODE_GLOBAL, bw, mtx, *gaps, device=dev)
     torch.cuda.synchronize()
     e2e_s = time.time() - t0
-    launches = _cuda.launches
+    launches = _cuda.launches_codes
     print(f"phase3 align_batch: 512 pairs in {e2e_s:.3f}s = "
           f"{512 / e2e_s:.2f} pairs/s, kernel launches {launches}")
     for nm, c in sorted(metrics.counters().items()):
@@ -386,6 +470,7 @@ def main() -> int:
         return fail("phase 3: TSV of the first 32 pairs differs from the "
                     "CPU path")
     print(f"phase3 TSV of 32 pairs == CPU path ({cpu_s:.1f}s on the CPU)")
+    stamp(3)
 
     # ---- phase 4: band 2048 at the CLI defaults ----
     gaps = (-3, -2, 0, 0)
@@ -414,6 +499,7 @@ def main() -> int:
                                                            ts):
         return fail("phase 4: band-2048 TSV differs from the CPU path")
     print(f"phase4 band 2048 pairs {check} == CPU path")
+    stamp(4)
 
     # ---- phase 5: the edit kernel against its plain version ----
     def edit_operands(qs, ts, mode, bw, banded, traj=None):
@@ -510,6 +596,7 @@ def main() -> int:
         if bad:
             return fail(f"phase 5 {label}: kernel disagrees with plain: "
                         + "; ".join(bad[:8]))
+    stamp(5)
 
     # ---- phase 6: the edit main path ----
     qs, ts = gen_pairs(512, 2000, 0.10, SEED + 20)
@@ -542,7 +629,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     metrics.reset()
-    _cuda.launches = _cuda.edit_launches = _cuda.pedit_launches = 0
+    reset_counts()
     t0 = time.time()
     res_e = D.edit_batch(qs, ts, MODE_GLOBAL, 0, device=dev)
     torch.cuda.synchronize()
@@ -550,7 +637,7 @@ def main() -> int:
     edit_launches = _cuda.edit_launches
     print(f"phase6 edit_batch: 512 pairs in {e2e_s:.3f}s = "
           f"{512 / e2e_s:.2f} pairs/s, edit kernel launches {edit_launches}, "
-          f"banded-8 launches {_cuda.launches}")
+          f"banded-8 launches {_cuda.launches_codes}")
     for nm, c in sorted(metrics.counters().items()):
         print(f"phase6 counter {nm}: {c.cells:.6g} cells in {c.seconds:.4f}s "
               f"over {c.calls} calls ({c.cells_per_s:.4g} cells/s)")
@@ -597,6 +684,7 @@ def main() -> int:
                   D.kmer_edit_batch(13, q, t, device="cpu"))
     except RuntimeError as e:
         return fail(str(e))
+    stamp(6)
 
     # ---- phase 7: the pedit kernel against its plain version ----
     from bsalign_tpu_torch.native import rowops as NR
@@ -722,10 +810,11 @@ def main() -> int:
           f"{pedit_plain_ms:.1f} ms; bound {pedit_bound_ms:.4f} ms by "
           f"{pedit_bound_by} ({pedit_bound_text})")
     del pk_main, round_jobs, main_jobs, jobs16
+    stamp(7)
 
     # ---- phase 8: the poa main path ----
     torch.cuda.synchronize()
-    _cuda.launches = _cuda.edit_launches = _cuda.pedit_launches = 0
+    reset_counts()
     t0 = time.time()
     res_p = PB.run_windows_lockstep(windows, BSPOAPar(), device=dev,
                                     want_msa=True)
@@ -735,7 +824,7 @@ def main() -> int:
     probe = dict(PB.last_probe)
     print(f"phase8 run_windows_lockstep: 128 windows in {t_p:.3f}s = "
           f"{128 / t_p:.3f} windows/s, pedit kernel launches "
-          f"{pedit_launches}, banded-8 {_cuda.launches}, edit "
+          f"{pedit_launches}, banded-8 {_cuda.launches_codes}, edit "
           f"{_cuda.edit_launches}")
     print("phase8 per window: " + ", ".join(
         f"{k} {v:.6g}" for k, v in probe.items()))
@@ -775,6 +864,252 @@ def main() -> int:
         return fail("phase 8: poa CLI stdout differs between cuda and cpu")
     print(f"phase8 poa CLI on window 0: --device cuda == --device cpu "
           f"({outs[0].count(chr(10))} lines)")
+    stamp(8)
+
+    # ---- phase 9: banded-8 planes and none emits against the plain ----
+    LINEAR, AFFINE = (0, -4, 0, 0), (-3, -2, 0, 0)
+    MAP_ONT = (-4, -2, -24, -1)          # -O 4 -E 2 -Q 24 -P 1
+    mtx_ont = O.set_score_matrix(2, -4)  # -M 2 -X 4
+    modes = (("global", MODE_GLOBAL), ("overlap", MODE_OVERLAP),
+             ("extend", MODE_EXTEND))
+    b8_err = 0
+
+    def check(label, err, bad):
+        nonlocal b8_err
+        b8_err = max(b8_err, err)
+        print(f"phase9 {label}: max_abs_err={err}")
+        if bad:
+            raise RuntimeError(f"phase 9 {label}: " + "; ".join(bad[:8]))
+
+    try:
+        for pw, gaps, m_ in ((0, LINEAR, mtx), (1, AFFINE, mtx),
+                             (2, MAP_ONT, mtx_ont)):
+            for mname, mode in modes:
+                qs, ts = gen_pairs(16, 500, 0.10, SEED + 40 + 3 * pw + mode)
+                g, st = operands(qs, ts, mode, 128, gaps, "planes", m_)
+                err, bad, p_ms = compare(g, st)
+                if g.piecewise != pw:
+                    bad.append(f"piecewise {g.piecewise}, not {pw}")
+                check(f"planes pw{pw} {mname} 16x500bp band128 (T={g.T}; "
+                      f"plain {p_ms:.1f} ms)", err, bad)
+                runs = {"planes": _cuda.banded8_rows(g, st)}
+                for e in ("codes", "none") if pw < 2 else ("none",):
+                    runs[e] = _cuda.banded8_rows(g._replace(emit=e), st)
+                if mode == MODE_GLOBAL:
+                    g_n = g._replace(emit="none")
+                    err, bad, p_ms = compare(g_n, st)
+                    check(f"none pw{pw} {mname} vs plain (plain "
+                          f"{p_ms:.1f} ms)", err, bad)
+                for e, r in runs.items():
+                    if e != "none":
+                        fin = {k: r[k] for k in ("fin_planes", "fin_ub",
+                                                 "fin_reg")}
+                        err, bad = diff_raw(g, st, runs["none"], fin)
+                        check(f"none pw{pw} {mname} final state vs {e}",
+                              err, bad)
+        # piecewise 2 at band 16, qlen >> tlen: the band is fully reset (a
+        # first gap piece shorter than the band: -O 4 -E 2 -Q 10 -P 1)
+        rng = np.random.default_rng(SEED + 50)
+        qs = [rng.integers(0, 4, L).astype(np.uint8) for L in (800, 900, 700)]
+        ts = [rng.integers(0, 4, L).astype(np.uint8) for L in (40, 45, 30)]
+        g, st = operands(qs, ts, MODE_GLOBAL, 16, (-4, -2, -10, -1),
+                         "planes")
+        err, bad, _ = compare(g, st)
+        begs = _cuda.banded8_rows(g, st)["begs"].cpu().numpy()
+        jump = max(int(np.diff(begs[:30, b], prepend=0).max())
+                   for b in range(3))
+        if g.piecewise != 2 or jump < 16:
+            bad.append(f"no full reset at piecewise {g.piecewise} "
+                       f"(largest move {jump})")
+        check(f"planes pw2 band16 full reset (largest move {jump})", err,
+              bad)
+        # resume: chunks of 256 rows over T = 1,024 against one launch, and
+        # the plain version in the same chunks against the kernel's
+        for emit, gaps, m_ in (("codes", AFFINE, mtx),
+                               ("planes", MAP_ONT, mtx_ont),
+                               ("none", MAP_ONT, mtx_ont)):
+            qs, ts = gen_pairs(16, 1000, 0.10, SEED + 60)
+            ts[3] = ts[3][:600]     # a pair that ends in an earlier chunk
+            g, st = operands(qs, ts, MODE_GLOBAL, 128, gaps, emit, m_)
+            one = _cuda.banded8_rows(g, st)
+            parts = {"kernel": [], "plain": []}
+            for who, fn in (("kernel", _cuda.banded8_rows),
+                            ("plain", K.forward_plain)):
+                reg, state = None, [st.us, st.es, st.qs, st.ub]
+                for c0 in range(0, g.T, 256):
+                    stc = st._replace(
+                        tseq=st.tseq[:, c0:c0 + 256].contiguous(),
+                        rby=st.rby[c0:c0 + 256].contiguous(), us=state[0],
+                        es=state[1], qs=state[2], ub=state[3],
+                        reg=st.reg if reg is None else reg, row0=c0)
+                    r = fn(g._replace(T=256), stc)
+                    parts[who].append(r)
+                    state = (r["fin_planes"] + [None, None])[:3] \
+                        + [r["fin_ub"]]
+                    reg = r["fin_reg"]
+            torch.cuda.synchronize()
+            for who, rs in parts.items():
+                last = rs[-1]
+                joined = {k: (last[k] if k.startswith("fin") or last[k] is None
+                              else torch.cat([x[k] for x in rs], 0))
+                          for k in last}
+                err, bad = diff_raw(g, st, joined, one)
+                check(f"{emit} resumed 4 x 256 rows ({who}) vs one launch",
+                      err, bad)
+    except RuntimeError as e:
+        return fail(str(e))
+    stamp(9)
+
+    # ---- phase 10: the 2-piece main path (planes emit + backcal) ----
+    qs, ts = gen_pairs(512, 2000, 0.10, SEED + 70)
+    g_pl, st_pl = operands(qs[:P.DEVICE_CHUNK], ts[:P.DEVICE_CHUNK],
+                           MODE_GLOBAL, 128, MAP_ONT, "planes", mtx_ont)
+    err, bad, planes_plain_ms = compare(g_pl, st_pl)
+    b8_err = max(b8_err, err)
+    if bad:
+        return fail("phase 10 chunk: planes kernel disagrees with plain: "
+                    + "; ".join(bad[:8]))
+    planes_ms = timed_ms(lambda: _cuda.banded8_rows(g_pl, st_pl), 5)
+    pl_bytes, pl_cells = banded8_work(g_pl, st_pl,
+                                      _cuda.banded8_rows(g_pl, st_pl))
+    planes_bound_ms, planes_bound_by, planes_bound_text = bound(
+        pl_bytes, pl_cells * BANDED8_PLANES_OPS_PER_CELL)
+    del st_pl
+    print(f"phase10 planes kernel: {planes_ms:.3f} ms per launch of "
+          f"{P.DEVICE_CHUNK} pairs (T={g_pl.T}, W={g_pl.W}, piecewise 2), "
+          f"{pl_cells / (planes_ms / 1e3):.4g} cells/s, max_abs_err={err}; "
+          f"plain on the card {planes_plain_ms:.1f} ms; bound "
+          f"{planes_bound_ms:.4f} ms by {planes_bound_by} "
+          f"({planes_bound_text})")
+    torch.cuda.synchronize()
+    metrics.reset()
+    reset_counts()
+    t0 = time.time()
+    res10 = P.align_batch(qs, ts, MODE_GLOBAL, 128, mtx_ont, *MAP_ONT,
+                          device=dev)
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t0
+    planes_launches = _cuda.launches_planes
+    print(f"phase10 align_batch map-ont: 512 pairs in {e2e_s:.3f}s = "
+          f"{512 / e2e_s:.2f} pairs/s, planes launches {planes_launches}, "
+          f"codes {_cuda.launches_codes}, none {_cuda.launches_none}")
+    for nm, c in sorted(metrics.counters().items()):
+        print(f"phase10 counter {nm}: {c.cells:.6g} units in "
+              f"{c.seconds:.4f}s over {c.calls} calls")
+    if planes_launches < 2:
+        return fail(f"2-piece path launched the planes kernel "
+                    f"{planes_launches} times (< 2)")
+    for b, (rs, cg) in enumerate(res10):
+        if not (rs.mat > 0 and cg and rs.qe == len(qs[b])
+                and rs.te == len(ts[b])):
+            return fail(f"phase 10 pair {b}: implausible alignment {rs}")
+    t0 = time.time()
+    cpu10 = P.align_batch(qs[:32], ts[:32], MODE_GLOBAL, 128, mtx_ont,
+                          *MAP_ONT, device="cpu")
+    if tsv(res10[:32], range(32), qs, ts) != tsv(cpu10, range(32), qs, ts):
+        return fail("phase 10: TSV of the first 32 pairs differs from the "
+                    "CPU path")
+    print(f"phase10 TSV of 32 pairs == CPU path "
+          f"({time.time() - t0:.1f}s on the CPU)")
+    stamp(10)
+
+    # ---- phase 11: long reads, two-pass and chunked planes ----
+    def run_align(qs, ts, mtx_, gaps, t_chunk=None):
+        """align_batch with T_CHUNK and REALIGN_T raised to t_chunk when
+        given; returns results, seconds, peak device bytes, counters."""
+        saved = (P.T_CHUNK, P.REALIGN_T)
+        if t_chunk:
+            P.T_CHUNK = P.REALIGN_T = t_chunk
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics.reset()
+            reset_counts()
+            t0 = time.time()
+            res = P.align_batch(qs, ts, MODE_GLOBAL, 128, mtx_, *gaps,
+                                device=dev)
+            torch.cuda.synchronize()
+            return (res, time.time() - t0, torch.cuda.max_memory_allocated(),
+                    dict(codes=_cuda.launches_codes,
+                         planes=_cuda.launches_planes,
+                         none=_cuda.launches_none),
+                    metrics.counters())
+        finally:
+            P.T_CHUNK, P.REALIGN_T = saved
+
+    def same_results(ra, rb):
+        return all(vars(a) == vars(b) and ca == cb
+                   for (a, ca), (b, cb) in zip(ra, rb)) and len(ra) == len(rb)
+
+    qs, ts = gen_pairs_fast(256, 50000, 0.10, SEED + 80)
+    T11 = roundup(max(len(t) for t in ts), 128)
+    n_chunks = -(-T11 // P.T_CHUNK)
+    # the none kernel against the plain version at the first chunk's shape
+    g_n, st_n = operands(qs, ts, MODE_GLOBAL, 128, AFFINE, "none")
+    g_n = g_n._replace(T=P.T_CHUNK)
+    st_n = st_n._replace(tseq=st_n.tseq[:, :P.T_CHUNK].contiguous(),
+                         rby=st_n.rby[:P.T_CHUNK].contiguous())
+    err, bad, none_plain_ms = compare(g_n, st_n)
+    b8_err = max(b8_err, err)
+    if bad:
+        return fail("phase 11 chunk: none kernel disagrees with plain: "
+                    + "; ".join(bad[:8]))
+    none_ms = timed_ms(lambda: _cuda.banded8_rows(g_n, st_n), 3)
+    refwd_ms = timed_ms(lambda: _cuda.banded8_rows(
+        g_n._replace(emit="codes"), st_n), 3)
+    n_bytes, n_cells = banded8_work(g_n, st_n, _cuda.banded8_rows(g_n, st_n))
+    none_bound_ms, none_bound_by, none_bound_text = bound(
+        n_bytes, n_cells * BANDED8_NONE_OPS_PER_CELL)
+    del st_n
+    print(f"phase11 none kernel: {none_ms:.3f} ms per launch of 256 pairs x "
+          f"{P.T_CHUNK} rows (W=8), {n_cells / (none_ms / 1e3):.4g} "
+          f"cells/s, max_abs_err={err}; codes at the same shape "
+          f"{refwd_ms:.3f} ms; plain on the card {none_plain_ms:.1f} ms; "
+          f"bound {none_bound_ms:.4f} ms by {none_bound_by} "
+          f"({none_bound_text})")
+    two, t_two, mem_two, cnt_two, ctr = run_align(qs, ts, mtx, AFFINE)
+    none_launches = cnt_two["none"]
+    print(f"phase11 two-pass 256 x 50 kb (T={T11}, {n_chunks} chunks): "
+          f"{t_two:.3f}s = {256 / t_two:.2f} pairs/s, launches {cnt_two}, "
+          f"peak device memory {mem_two / 1e6:.1f} MB")
+    for nm, c in sorted(ctr.items()):
+        print(f"phase11 counter {nm}: {c.cells:.6g} units in "
+              f"{c.seconds:.4f}s over {c.calls} calls")
+    walk_s = t_two - sum(c.seconds for c in ctr.values())
+    print(f"phase11 pass 1 (scores only) {ctr['banded8_fwd'].seconds:.3f}s, "
+          f"pass 2 re-forward waits {ctr['banded8_refwd'].seconds:.3f}s, "
+          f"walk and the rest {walk_s:.3f}s")
+    if cnt_two != dict(codes=n_chunks, planes=0, none=n_chunks):
+        return fail(f"phase 11: two-pass launches {cnt_two}, expected "
+                    f"{n_chunks} none and {n_chunks} codes")
+    one, t_one, mem_one, cnt_one, _ = run_align(qs, ts, mtx, AFFINE,
+                                                t_chunk=1 << 20)
+    print(f"phase11 one-shot codes: {t_one:.3f}s = {256 / t_one:.2f} "
+          f"pairs/s, launches {cnt_one}, peak device memory "
+          f"{mem_one / 1e6:.1f} MB")
+    if cnt_one["codes"] != 1 or not same_results(two, one):
+        return fail("phase 11: two-pass results differ from the one-shot "
+                    "run")
+    for b, (rs, cg) in enumerate(two):
+        if not (rs.mat > 0 and cg and rs.qe == len(qs[b])
+                and rs.te == len(ts[b])):
+            return fail(f"phase 11 pair {b}: implausible alignment {rs}")
+    print("phase11 two-pass == one-shot: every AlnResult and CIGAR of 256 "
+          "pairs")
+    del two, one
+    qs, ts = gen_pairs_fast(16, 20000, 0.10, SEED + 81)
+    chk, t_chk, mem_chk, cnt_chk, _ = run_align(qs, ts, mtx_ont, MAP_ONT)
+    one, t_one, mem_one, cnt_one, _ = run_align(qs, ts, mtx_ont, MAP_ONT,
+                                                t_chunk=1 << 20)
+    print(f"phase11 chunked planes 16 x 20 kb map-ont: {t_chk:.3f}s, "
+          f"launches {cnt_chk}, peak {mem_chk / 1e6:.1f} MB; one-shot "
+          f"{t_one:.3f}s, launches {cnt_one}, peak {mem_one / 1e6:.1f} MB")
+    if cnt_chk["planes"] < 2 or cnt_one["planes"] != 1 \
+            or not same_results(chk, one):
+        return fail("phase 11: chunked planes results differ from the "
+                    "one-shot run")
+    print("phase11 chunked planes == one-shot planes: 16 pairs")
+    stamp(11)
 
     for mod in ("jax", "bsalign_tpu"):
         if mod in sys.modules:
@@ -783,9 +1118,23 @@ def main() -> int:
         "name": "banded8_codes", "route": "cuda",
         "source": "bsalign_tpu_torch/csrc/banded8.cu",
         "replaces": "bsalign_tpu/ops/banded8_pallas.py:742",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches, "max_abs_err": max(max_err, b8_err),
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": b8_bound_ms, "bound_by": b8_bound_by,
+        "library_ms": None}, {
+        "name": "banded8_planes", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/banded8.cu",
+        "replaces": "bsalign_tpu/ops/banded8_pallas.py:742",
+        "launches": planes_launches, "max_abs_err": b8_err,
+        "ms": planes_ms, "plain_ms": planes_plain_ms,
+        "bound_ms": planes_bound_ms, "bound_by": planes_bound_by,
+        "library_ms": None}, {
+        "name": "banded8_none", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/banded8.cu",
+        "replaces": "bsalign_tpu/ops/banded8_pallas.py:742",
+        "launches": none_launches, "max_abs_err": b8_err,
+        "ms": none_ms, "plain_ms": none_plain_ms,
+        "bound_ms": none_bound_ms, "bound_by": none_bound_by,
         "library_ms": None}, {
         "name": "edit_rows", "route": "cuda",
         "source": "bsalign_tpu_torch/csrc/edit.cu",

@@ -8,6 +8,9 @@ JAX package on identical numpy operands, on the CPU.
 - The plain codes against the JAX package's extractor
   (bsalign_tpu.align.btcodes.codes_from_rows) applied to the same rows.
 - The plain codes and begs against the Pallas kernel in interpret mode.
+- The plain forward run in resumed row chunks (init_reg/row0) against its
+  one-shot run, for every emit; the scores-only emit against the planes
+  and codes emits; planes rows at and past tlen.
 
 The hand-written CUDA kernel is held against the plain version on the card
 in test_torch_cuda.py.
@@ -191,7 +194,7 @@ def test_movx_matches_jax(gaps):
     want = KJ._movx(j(us), j(es), j(qs), j(ub), j(movx), pw, NT_MAX, NT_MIN,
                     *gaps, W)
     t = (lambda a: None if a is None else torch.from_numpy(a))
-    g = K.Geometry(1, W, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN, False)
+    g = K.Geometry(1, W, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN, "planes")
     got = K._movx(t(us), t(es), t(qs), t(ub), t(movx), g)
     for a, c in zip(want, got):
         assert (a is None) == (c is None)
@@ -215,3 +218,86 @@ def test_plain_codes_match_pallas_interpret():
                                       rc.planes.begs.numpy()[:tl, b])
     np.testing.assert_array_equal(np.asarray(rp.score), rc.score.numpy())
 
+
+
+def _short_operands(mode, gaps, seed):
+    """Three pairs of 24-48 bp at band 32, T = the longest target (no
+    rounding), so that a plain run stays short."""
+    rng = np.random.default_rng(seed)
+    qs, ts = zip(*(gen_pair(rng, L, 0.15) for L in (24, 40, 48)))
+    pw = JO.get_piecewise(*gaps, 32)
+    qpad, qlens, tpad, tlens, rby, _ = JP._pack_batch(qs, ts, 32)
+    us, es, q0, ub, _ = JP._init_state(mode, 32, pw, NT_MAX, NT_MIN, *gaps,
+                                       len(qs))
+    mtx5 = JP._mtx5(JO.set_score_matrix(NT_MAX, NT_MIN))
+    return pw, int(tlens.max()), tlens, (qpad, qlens, tpad, tlens, mtx5, rby,
+                                         us, es, q0, ub)
+
+
+def _kw(emit):
+    return dict(codes=emit == "codes", scores_only=emit == "none")
+
+
+RESUME_CASES = [(emit, gaps, mode) for emit in K.EMITS
+                for gaps in (LINEAR, AFFINE, TWO_PIECE)
+                for mode in (MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND)
+                if not (emit == "codes" and gaps == TWO_PIECE)]
+
+
+@pytest.mark.parametrize("case", range(len(RESUME_CASES)))
+def test_plain_resumed_chunks_match_one_shot(case):
+    """2-4 row chunks, each resumed from the previous call's final planes,
+    anchors and registers at its global row, give the one-shot run's rows
+    and final state. The 24 bp pair ends inside an earlier chunk."""
+    emit, gaps, mode = RESUME_CASES[case]
+    pw, T, _, args = _short_operands(mode, gaps, 40 + case)
+    tc = (16, 24, 12)[case % 3]               # 3, 2 and 4 chunks of T = 48
+    geom = (2, mode, pw, *gaps, NT_MAX, NT_MIN)
+    one = K.make_forward(T, *geom, device="cpu", **_kw(emit))(*args)
+    (qpad, qlens, tpad, tlens, mtx5, rby), state = args[:6], list(args[6:])
+    reg, parts = None, []
+    for c0 in range(0, T, tc):
+        c1 = min(c0 + tc, T)
+        r = K.make_forward(c1 - c0, *geom, device="cpu", **_kw(emit))(
+            qpad, qlens, tpad[:, c0:c1], tlens, mtx5, rby[c0:c1], *state,
+            init_reg=reg, row0=c0)
+        parts.append(r.planes)
+        state = (r.final_planes + [None, None])[:3] + [r.final_ubegs]
+        reg = r.final_reg
+    assert 2 <= len(parts) <= 4 and tlens.min() <= T - tc
+    for fld in K.RowPlanes._fields:
+        a = getattr(one.planes, fld)
+        got = [getattr(p, fld) for p in parts]
+        assert (a is None) == (got[0] is None), fld
+        if a is not None:
+            assert torch.equal(a, torch.cat(got, 0)), fld
+    for fld in ("score", "qe", "te", "final_us", "final_ubegs", "final_rbeg",
+                "final_reg"):
+        assert torch.equal(getattr(one, fld), getattr(r, fld)), fld
+    for a, c in zip(one.final_planes, r.final_planes):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
+@pytest.mark.parametrize("gaps", [LINEAR, AFFINE, TWO_PIECE])
+def test_scores_only_matches_planes_and_codes(gaps, mode):
+    """The none emit has no per-row outputs and the planes emit's score,
+    end cell and final state (and the codes emit's, where it exists);
+    planes rows at and past tlen are 0 and begs repeat the frozen rbeg."""
+    pw, T, tlens, args = _short_operands(mode, gaps, 60 + mode)
+    geom = (T, 2, mode, pw, *gaps, NT_MAX, NT_MIN)
+    runs = {e: K.make_forward(*geom, device="cpu", **_kw(e))(*args)
+            for e in K.EMITS if not (e == "codes" and pw == 2)}
+    none = runs["none"]
+    assert all(getattr(none.planes, f) is None for f in K.RowPlanes._fields)
+    for e, r in runs.items():
+        for fld in ("score", "qe", "te", "final_us", "final_ubegs",
+                    "final_reg"):
+            assert torch.equal(getattr(r, fld), getattr(none, fld)), (e, fld)
+    pl = runs["planes"].planes
+    for b, tl in enumerate(tlens):
+        for fld in ("us", "es", "qs", "ubegs"):
+            a = getattr(pl, fld)
+            if a is not None:
+                assert not a[tl:, ..., b].any(), fld
+        assert (pl.begs[tl:, b] == none.final_rbeg[b]).all()

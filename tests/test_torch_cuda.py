@@ -23,6 +23,7 @@ pytestmark = pytest.mark.cuda
 
 AFFINE = (-3, -2, 0, 0)   # piecewise 1
 LINEAR = (0, -4, 0, 0)    # piecewise 0
+TWO_PIECE = (-4, -2, -24, -1)  # piecewise 2 (map-ont: -O 4 -E 2 -Q 24 -P 1)
 NT_MAX, NT_MIN = 2, -6
 
 # (mode, gaps, W, pair lengths, error rate, seed)
@@ -62,18 +63,21 @@ def _operands(qs, ts, mode, gaps, W):
 def _kernel_and_plain(g, args, device):
     from bsalign_tpu_torch.ops import _cuda
     st = K.state_from_numpy(*args, T=g.T, device=device)
-    rk = _cuda.banded8_codes(g, st)
+    rk = _cuda.banded8_rows(g, st)
     rp = K.forward_plain(g, st)
     torch.cuda.synchronize()
     return rk, rp
 
 
 def _assert_same(rk, rp):
-    for fld in ("codes", "begs", "fin_ub", "fin_reg"):
-        assert torch.equal(rk[fld], rp[fld]), fld
-    assert len(rk["fin_planes"]) == len(rp["fin_planes"])
-    for a, c in zip(rk["fin_planes"], rp["fin_planes"]):
-        assert torch.equal(a, c)
+    assert sorted(rk) == sorted(rp)
+    for fld, a in rk.items():
+        if fld == "fin_planes":
+            assert len(a) == len(rp[fld])
+            for x, c in zip(a, rp[fld]):
+                assert torch.equal(x, c), fld
+        elif a is not None:
+            assert torch.equal(a, rp[fld]), fld
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
@@ -81,19 +85,21 @@ def test_kernel_matches_plain(case, cuda_device):
     mode, gaps, W, lens, err, seed = CASES[case]
     qs, ts = _pairs(lens, err, seed)
     pw, T, args = _operands(qs, ts, mode, gaps, W)
-    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, True)
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, "codes")
     _assert_same(*_kernel_and_plain(g, args, cuda_device))
 
 
-@pytest.mark.parametrize("gaps", [AFFINE, LINEAR])
+@pytest.mark.parametrize("gaps", [AFFINE, LINEAR, (-4, -2, -10, -1)])
 def test_kernel_full_band_reset_matches_plain(gaps, cuda_device):
     """qlen >> tlen at band 16: the global steering moves the band past its
-    width, so the band is fully reset."""
+    width, so the band is fully reset. Piecewise 2 at band 16 needs a
+    first gap piece shorter than the band (-Q 10 -P 1), and emits planes."""
     rng = np.random.default_rng(21)
     qs = [rng.integers(0, 4, L).astype(np.uint8) for L in (800, 900, 700)]
     ts = [rng.integers(0, 4, L).astype(np.uint8) for L in (40, 45, 30)]
     pw, T, args = _operands(qs, ts, MODE_GLOBAL, gaps, 1)
-    g = K.Geometry(T, 1, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN, True)
+    g = K.Geometry(T, 1, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN,
+                   "planes" if pw == 2 else "codes")
     rk, rp = _kernel_and_plain(g, args, cuda_device)
     begs = rk["begs"].cpu().numpy()
     assert max(np.diff(begs[:40, b], prepend=0).max() for b in range(3)) >= 16
@@ -108,11 +114,11 @@ def test_make_forward_on_cuda_launches_and_matches_cpu(cuda_device):
     qs, ts = _pairs(lens, err, seed)
     pw, T, args = _operands(qs, ts, mode, gaps, W)
     geom = (T, W, mode, pw, *gaps, NT_MAX, NT_MIN)
-    before = _cuda.launches
+    before = _cuda.launches_codes
     rg = K.make_forward(*geom, codes=True, device=cuda_device)(*args)
-    assert _cuda.launches == before + 1
+    assert _cuda.launches_codes == before + 1
     rc = K.make_forward(*geom, codes=True, device="cpu")(*args)
-    assert _cuda.launches == before + 1
+    assert _cuda.launches_codes == before + 1
     for fld in ("score", "qe", "te", "final_us", "final_ubegs", "final_rbeg",
                 "final_reg"):
         assert torch.equal(getattr(rg, fld), getattr(rc, fld)), fld
@@ -127,11 +133,11 @@ def test_kernel_wrapper_checks_operands(cuda_device):
     pw, T, args = _operands(qs, ts, mode, gaps, W)
     st = K.state_from_numpy(*args, T=T, device=cuda_device)
     st = st._replace(qlen=st.qlen.long())
-    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, True)
-    before = _cuda.launches
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, "codes")
+    before = _cuda.launches_codes
     with pytest.raises(ValueError, match="qlen"):
-        _cuda.banded8_codes(g, st)
-    assert _cuda.launches == before
+        _cuda.banded8_rows(g, st)
+    assert _cuda.launches_codes == before
 
 
 @pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
@@ -144,6 +150,79 @@ def test_align_batch_cuda_matches_cpu(mode, cuda_device):
         return "".join(CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b], rs, cg)
                        for b, (rs, cg) in enumerate(out))
     assert tsv(cuda_device) == tsv("cpu")
+
+
+# (mode, gaps, W, pair lengths, error rate, seed): planes and none emits
+EMIT_CASES = [
+    (MODE_GLOBAL, LINEAR, 2, (90, 120, 150), 0.12, 51),
+    (MODE_OVERLAP, AFFINE, 8, (150, 200, 240), 0.12, 52),
+    (MODE_GLOBAL, TWO_PIECE, 8, (150, 200, 250, 300), 0.15, 53),
+    (MODE_OVERLAP, TWO_PIECE, 2, (100, 160, 200), 0.12, 54),
+    (MODE_EXTEND, TWO_PIECE, 40, (600, 600, 620), 0.10, 55),
+]
+
+
+@pytest.mark.parametrize("emit", ["planes", "none"])
+@pytest.mark.parametrize("case", range(len(EMIT_CASES)))
+def test_kernel_emits_match_plain(case, emit, cuda_device):
+    mode, gaps, W, lens, err, seed = EMIT_CASES[case]
+    qs, ts = _pairs(lens, err, seed)
+    pw, T, args = _operands(qs, ts, mode, gaps, W)
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, emit)
+    _assert_same(*_kernel_and_plain(g, args, cuda_device))
+
+
+@pytest.mark.parametrize("emit", ["codes", "planes", "none"])
+def test_kernel_resumed_chunks_match_one_shot(emit, cuda_device):
+    """The kernel run in chunks of 64 rows, each resumed at its global row
+    from the previous launch's final state, gives the one-shot launch's
+    rows and final state; the shortest pair ends in an earlier chunk."""
+    from bsalign_tpu_torch.ops import _cuda
+    gaps = AFFINE if emit == "codes" else TWO_PIECE
+    qs, ts = _pairs((120, 200, 250), 0.12, 56)
+    pw, T, args = _operands(qs, ts, MODE_GLOBAL, gaps, 4)
+    g = K.Geometry(T, 4, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN, emit)
+    one = _cuda.banded8_rows(g, K.state_from_numpy(*args, T=T,
+                                                    device=cuda_device))
+    (qpad, qlens, tpad, tlens, mtx5, rby), state = args[:6], list(args[6:])
+    reg, parts = None, []
+    for c0 in range(0, T, 64):
+        st = K.state_from_numpy(qpad, qlens, tpad[:, c0:c0 + 64], tlens,
+                                mtx5, rby[c0:c0 + 64], *state, reg, c0, T=64,
+                                device=cuda_device)
+        r = _cuda.banded8_rows(g._replace(T=64), st)
+        parts.append(r)
+        state = (r["fin_planes"] + [None, None])[:3] + [r["fin_ub"]]
+        reg = r["fin_reg"]
+    torch.cuda.synchronize()
+    joined = {k: (r[k] if k.startswith("fin") or r[k] is None
+                  else torch.cat([p[k] for p in parts], 0)) for k in r}
+    _assert_same(joined, one)
+
+
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_EXTEND])
+def test_align_batch_two_piece_and_chunked_cuda_matches_cpu(mode,
+                                                            cuda_device,
+                                                            monkeypatch):
+    """2-piece gaps through the planes emit, and the long-target routes
+    forced by small T_CHUNK/REALIGN_T, give the CPU path's TSV."""
+    from bsalign_tpu_torch.ops import _cuda
+    qs, ts = _pairs((300, 450, 700, 520), 0.12, 57 + mode)
+    mtx = O.set_score_matrix(NT_MAX, NT_MIN)
+
+    def tsv(device, gaps):
+        out = P.align_batch(qs, ts, mode, 64, mtx, *gaps, device=device)
+        return "".join(CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b], rs,
+                                         cg)
+                       for b, (rs, cg) in enumerate(out))
+    before = _cuda.launches_planes
+    assert tsv(cuda_device, TWO_PIECE) == tsv("cpu", TWO_PIECE)
+    assert _cuda.launches_planes == before + 1
+    monkeypatch.setattr(P, "T_CHUNK", 128)
+    for realign_t in (256, 1024):    # two-pass, then chunked codes
+        monkeypatch.setattr(P, "REALIGN_T", realign_t)
+        assert tsv(cuda_device, AFFINE) == tsv("cpu", AFFINE)
+    assert tsv(cuda_device, TWO_PIECE) == tsv("cpu", TWO_PIECE)
 
 
 # ---- the edit kernel (csrc/edit.cu) ----

@@ -44,7 +44,8 @@ win = ["".join("ACGT"[b] for b in ts[0][i:]) for i in (0, 2, 4, 6)]
 pout = batch.run_windows([win], core.BSPOAPar(), device="cpu")
 print(json.dumps({"mods": sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("jax", "bsalign_tpu")),
-                  "launches": _cuda.launches,
+                  "launches": _cuda.launches_codes + _cuda.launches_planes
+                              + _cuda.launches_none,
                   "edit_launches": _cuda.edit_launches,
                   "pedit_launches": _cuda.pedit_launches,
                   "poa_cns": len(pout[0].cns),
@@ -109,14 +110,14 @@ def test_cpu_tensors_take_the_plain_version():
     st = K.state_from_numpy(qpad, qlens, tpad, tlens,
                             P._mtx5(O.set_score_matrix(2, -6)), rby, us, es,
                             qs, ub, T=T, device="cpu")
-    g = K.Geometry(T, 2, 1, 1, -3, -2, 0, 0, 2, -6, True)
-    before = _cuda.launches
+    g = K.Geometry(T, 2, 1, 1, -3, -2, 0, 0, 2, -6, "codes")
+    before = _cuda.launches_codes
     raw, plain = K.forward_raw(g, st), K.forward_plain(g, st)
     for fld in ("codes", "begs", "fin_ub", "fin_reg"):
         assert torch.equal(raw[fld], plain[fld]), fld
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _cuda.banded8_codes(g, st)
-    assert _cuda.launches == before
+        _cuda.banded8_rows(g, st)
+    assert _cuda.launches_codes == before
 
 
 def test_unported_commands_exit_nonzero(capsys):
@@ -126,10 +127,17 @@ def test_unported_commands_exit_nonzero(capsys):
 
 
 def test_two_piece_gaps_not_yet_ported():
+    """2-piece gap costs (-Q/-P), which the port once refused, now align on
+    the CPU path through the planes emit and backcal, launching no kernel."""
     from bsalign_tpu_torch.align import pairwise as P
     from bsalign_tpu_torch.oracle import banded8 as O
     rng = np.random.default_rng(4)
     q, t = gen_pair(rng, 80, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.align_batch([q], [t], 0, 64, O.set_score_matrix(2, -6),
-                      -4, -2, -24, -1, device="cpu")
+    before = (_cuda.launches_codes, _cuda.launches_planes,
+              _cuda.launches_none)
+    [(rs, cg)] = P.align_batch([q], [t], 0, 64, O.set_score_matrix(2, -6),
+                               -4, -2, -24, -1, device="cpu")
+    assert (rs.qb, rs.qe, rs.tb, rs.te) == (0, len(q), 0, len(t))
+    assert rs.mat + rs.mis + rs.ins + rs.dele == rs.aln > 0 and cg
+    assert (_cuda.launches_codes, _cuda.launches_planes,
+            _cuda.launches_none) == before
