@@ -19,6 +19,7 @@ import torch
 
 from ..constants import MODE_GLOBAL, MODE_OVERLAP, WORDSIZE, mode_type
 from ..utils.build import build_shared
+from .banded8 import query_bytes
 
 WS = WORDSIZE
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -61,7 +62,7 @@ def lib():
                 "kernels", srcs, [_nvcc()] + NVCC_FLAGS, [_nvcc(), "-shared"])
             so = ctypes.CDLL(path)
             so.bsa_banded8_rows.argtypes = \
-                [ctypes.c_void_p] * 23 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 24 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
             so.bsa_banded8_rows.restype = ctypes.c_int
             so.bsa_edit_rows.argtypes = \
                 [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -82,13 +83,17 @@ def _check(name, t, shape, kernel="banded8"):
 
 
 EMIT_CODE = {"codes": 0, "planes": 1, "none": 2}
+# phases of the kernel's optional cycle split, in the order of its rows
+SPLIT_PHASES = ("move", "head", "pass1", "floop", "pass2", "steer", "emit")
 
 
-def banded8_rows(g, st):
+def banded8_rows(g, st, *, cycle_split=False):
     """Launch the banded-8 kernel for geometry g (its emit: codes, planes or
     none) on state st (a banded8.State on one CUDA device, resumed at
     st.row0 from st.reg). Returns the raw outputs as device tensors, with
-    the keys of banded8.forward_plain."""
+    the keys of banded8.forward_plain. With cycle_split, out["cycles"] is
+    an int64 [len(SPLIT_PHASES), B] tensor: each pair's SM clock cycles per
+    phase, summed over its rows below tlen (the main paths never ask)."""
     global launches_codes, launches_planes, launches_none
     pw = g.piecewise
     if g.emit not in EMIT_CODE or pw not in (0, 1, 2) \
@@ -111,7 +116,8 @@ def banded8_rows(g, st):
         _check("es", st.es, (W, WS, B))
     if pw == 2:
         _check("qs", st.qs, (W, WS, B))
-    smem = PAIRS_PER_BLOCK * 2 * (pw + 1) * BW
+    NG = -(-W // 8)   # each lane's stripes in groups of 8, an odd number
+    smem = PAIRS_PER_BLOCK * 2 * (pw + 1) * WS * 8 * (NG | 1)
     if smem > 227 * 1024:
         raise NotImplementedError(f"band {BW} needs {smem} bytes of shared "
                                   "memory per block, above the card's 227 KB")
@@ -132,7 +138,10 @@ def banded8_rows(g, st):
         out["ubegs"] = empty(T, WS + 1, B)
     mt = mode_type(g.mode)
     d_oh, c_oh = g.overhang()
+    qb = query_bytes(st.qpad)
     fin = out["fin_planes"] + [None] * (2 - pw)
+    cycles = torch.zeros(len(SPLIT_PHASES), B, dtype=torch.int64,
+                         device=dev) if cycle_split else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -140,14 +149,14 @@ def banded8_rows(g, st):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib().bsa_banded8_rows(
-            ptr(st.qpad), ptr(st.tseq), ptr(st.qlen), ptr(st.tlen),
+            ptr(qb), ptr(st.tseq), ptr(st.qlen), ptr(st.tlen),
             ptr(st.rbz), ptr(st.rby), ptr(st.mtx5), ptr(st.us),
             ptr(st.es if pw >= 1 else None), ptr(st.qs if pw == 2 else None),
             ptr(st.ub), ptr(st.reg),
             *(ptr(out.get(k)) for k in ("codes", "us", "es", "qs", "ubegs",
                                         "begs")),
             *(ptr(t) for t in fin), ptr(out["fin_ub"]), ptr(out["fin_reg"]),
-            B, QP, T,
+            ptr(cycles), B, qb.shape[1], T,
             int(st.row0), W, 0 if mt == MODE_GLOBAL else
             (1 if mt == MODE_OVERLAP else 2), pw, EMIT_CODE[g.emit],
             g.gapo1, g.gape1, g.gapo2, g.gape2, d_oh, c_oh, PAIRS_PER_BLOCK,
@@ -160,6 +169,8 @@ def banded8_rows(g, st):
         launches_planes += 1
     else:
         launches_none += 1
+    if cycle_split:
+        out["cycles"] = cycles
     return out
 
 

@@ -155,6 +155,18 @@ def state_from_numpy(qpad, qlen, tseq, tlen, mtx5, rby, init_us, init_es,
                  t(init_ub[:WS + 1]), t(reg), int(row0))
 
 
+def query_bytes(qpad: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's query operand: qpad [B, QP] as uint8 [B, QPU],
+    QPU = QP rounded up to 16 plus 16, codes of 4 and above as 4 and every
+    byte past QP 4 (all of them score MIN8, as past the padding in
+    _qprof_row). The kernel reads each lane's window as aligned words."""
+    B, QP = qpad.shape
+    qb = torch.full((B, -(-QP // 16) * 16 + 16), 4, dtype=torch.uint8,
+                    device=qpad.device)
+    qb[:, :QP] = qpad.clamp(0, 4)
+    return qb
+
+
 # ---------------------------------------------------------------- plain ----
 
 def _adds8(a, b):

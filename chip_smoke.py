@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bsalign_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, as below
+    python3 chip_smoke.py --split    # phase 1, then kernel A's row step
+                                     # alone at the three shapes below
 
 Phases, in order; any failure exits non-zero:
 
@@ -9,16 +11,21 @@ Phases, in order; any failure exits non-zero:
    CUDA kernels (csrc/*.cu: banded-8, edit and pedit, one nvcc per source
    started together, sm_90a, linked into one library) and of the host
    library (g++: the codes walker and the POA engine), with their build
-   seconds.
+   seconds. Beside it, nvcc -Xptxas -v on the banded-8 source: the
+   registers, stack and spills of the main paths' instantiations are
+   printed at the end, and a spill fails the run.
 2. Banded-8 kernel against its plain PyTorch version, both on the card, on
    seeded pairs at 10% error (64 x 1 kb at band 128, 8 x 600 bp at band
    640, a full reset at band 16): codes, begs, score/qe/te and the final
    state must agree bit for bit (tolerance 0: the arithmetic is integer).
+   Then bands 16, 48 and 144 (W = 1, 3, 9: a partial last group of 8
+   stripes) in every emit, with a short query in the batch's last pair.
 3. The align main path: `align_batch` on 512 pairs x 2 kb, global, band
    128, -M 2 -X 6 -O 3 -E 2. The banded-8 kernel's launch count over that
    run must be at least 2 (two DEVICE_CHUNKs), and the TSV of the first 32
    pairs must equal the port's CPU path byte for byte. Prints kernel time,
-   cells/s and end-to-end pairs/s.
+   cells/s and end-to-end pairs/s, and the kernel's cycle split at the
+   launch shape (see below).
 4. Band 2048: 16 pairs x 2 kb at the CLI defaults (overlap, band
    roundup(qlen, 128)), checked against the CPU path on 2 pairs.
 5. Edit kernel against its plain PyTorch version, both on the card, on
@@ -70,6 +77,13 @@ Phases, in order; any failure exits non-zero:
    its one-shot planes run. Prints each pass's time, the walk, pairs/s
    and the peak device memory of both runs.
 
+The cycle split (phases 3, 10 and 11, and --split): one launch with the
+kernel's optional per-phase clock64() counters on, against one with them
+off (outputs must be equal), printed as SM cycles per row below tlen,
+mean over pairs, for band move, row head, pass 1, F-loop, pass 2 with its
+tail, steering and emit, beside the time per row and nvidia-smi's
+clocks.sm.
+
 Each phase prints the seconds since the start when it ends. The line
 before the last is a JSON object with each kernel's launches on its main
 path, error, times and bound; the last line is {"ok": true,
@@ -79,10 +93,14 @@ bsalign_tpu.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -263,6 +281,71 @@ def edit_bytes(g, ops):
     return ins + rows * (8 * NW + 4) + B * (8 * NW + 16)
 
 
+def ptxas_report(src, flags):
+    """Start nvcc -Xptxas -v on the banded-8 source src in the background
+    (killed at exit if still running); returns a function that waits for
+    it and returns {(piecewise, mode, emit): (registers, stack bytes, spill
+    store bytes, spill load bytes)} for each instantiation of
+    banded8_rows_kernel."""
+    tmp = tempfile.mkdtemp()
+    proc = subprocess.Popen(
+        flags + ["-Xptxas", "-v", "-c", src, "-o",
+                 os.path.join(tmp, "banded8.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)
+
+    def wait():
+        text = proc.communicate()[0]
+        shutil.rmtree(tmp, ignore_errors=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text}")
+        out, key = {}, None
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\S+?)'?( for|$)", line)
+            if m:
+                k = re.search(r"banded8_rows_kernelILi(\d)ELi(\d)ELi(\d)E",
+                              m.group(1))
+                key = tuple(int(x) for x in k.groups()) if k else None
+                continue
+            if key is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                out[key] = out.get(key, (0,)) [:1] + tuple(
+                    int(x) for x in m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[key] = (int(m.group(1)),) + out.get(key, (0, 0, 0, 0))[1:]
+        return out
+    return wait
+
+
+def ptxas_check(ptxas_wait):
+    """Print the registers, stack and spills of the banded-8 kernel's
+    main-path instantiations (piecewise 1 codes and none, piecewise 2
+    planes, all global) and the range over all; returns an error message
+    when one is missing or spills, else None."""
+    ptxas = ptxas_wait()
+    for key, nm in (((1, 0, 0), "pw1 global codes"),
+                    ((1, 0, 2), "pw1 global none"),
+                    ((2, 0, 1), "pw2 global planes")):
+        if key not in ptxas:
+            return f"ptxas -v names no banded8_rows_kernel {key}"
+        regs, stack, sst, sld = ptxas[key]
+        print(f"ptxas banded8_rows_kernel {nm}: {regs} registers, {stack} "
+              f"bytes stack frame, {sst} bytes spill stores, {sld} bytes "
+              "spill loads")
+        if sst or sld:
+            return f"banded8_rows_kernel {nm} spills"
+    print(f"ptxas all {len(ptxas)} banded8 instantiations: registers "
+          f"{min(v[0] for v in ptxas.values())}-"
+          f"{max(v[0] for v in ptxas.values())}, spills in "
+          f"{sum(1 for v in ptxas.values() if v[2] or v[3])}")
+    return None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -303,6 +386,8 @@ def main() -> int:
     print(f"device: {name}")
     print(smi_line)   # the card's name and power limit, as nvidia-smi says
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    ptxas_wait = ptxas_report(os.path.join(_cuda.CSRC, "banded8.cu"),
+                              [_cuda._nvcc()] + _cuda.NVCC_FLAGS)
     _cuda.lib()
     native.rowops_lib()
     print(f"build: kernels {_cuda.build_seconds:.1f}s (nvcc sm_90a), "
@@ -376,6 +461,66 @@ def main() -> int:
         worst, bad = diff_raw(g, st, rk, rp)
         return worst, bad, e0.elapsed_time(e1)
 
+    def sm_clock():
+        r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+        return r.stdout.strip() or "not read"
+
+    def split_line(label, g, st, ms):
+        """The kernel's cycle split at this shape: SM clock cycles per phase
+        per row below tlen (mean over pairs), and the launch with the split
+        on against one with it off (their outputs must be equal)."""
+        on = _cuda.banded8_rows(g, st, cycle_split=True)
+        off = _cuda.banded8_rows(g, st)
+        torch.cuda.synchronize()
+        cyc = on.pop("cycles").cpu().double()
+        err, bad = diff_raw(g, st, on, off)
+        if bad:
+            raise RuntimeError(f"{label}: the split changed the outputs: "
+                               + "; ".join(bad[:8]))
+        rows = float((st.tlen - st.row0).clamp(0, g.T).sum())
+        per = cyc.sum(1) / rows
+        print(f"split {label} (cycles per row): " + ", ".join(
+            f"{nm} {v:.1f}" for nm, v in zip(_cuda.SPLIT_PHASES,
+                                             per.tolist()))
+              + f"; total {float(per.sum()):.1f}; kernel {ms:.3f} ms over "
+              f"T={g.T} rows = {ms * 1e3 / g.T:.3f} us per row; clocks.sm "
+              f"{sm_clock()}; split on == off (max_abs_err={err})")
+
+    if "--split" in sys.argv[1:]:
+        # kernel A's row step alone, at its three main-path shapes: kernel
+        # against plain (tolerance 0), its time and cycle split
+        AFF, ONT = (-3, -2, 0, 0), (-4, -2, -24, -1)
+        m_ont = O.set_score_matrix(2, -4)
+        qs, ts = gen_pairs(P.DEVICE_CHUNK, 2000, 0.10, SEED)
+        shapes = [("codes", "codes", qs, ts, AFF, mtx, None)]
+        qs, ts = gen_pairs(P.DEVICE_CHUNK, 2000, 0.10, SEED + 70)
+        shapes.append(("planes", "planes", qs, ts, ONT, m_ont, None))
+        qs, ts = gen_pairs_fast(256, 50000, 0.10, SEED + 80)
+        shapes.append(("none", "none", qs, ts, AFF, mtx, P.T_CHUNK))
+        for emit, label, qs, ts, gaps, m_, t_cut in shapes:
+            g, st = operands(qs, ts, MODE_GLOBAL, 128, gaps, emit, m_)
+            if t_cut:
+                g = g._replace(T=t_cut)
+                st = st._replace(tseq=st.tseq[:, :t_cut].contiguous(),
+                                 rby=st.rby[:t_cut].contiguous())
+            err, bad, p_ms = compare(g, st)
+            if bad:
+                return fail(f"--split {label}: kernel disagrees with plain: "
+                            + "; ".join(bad[:8]))
+            ms = timed_ms(lambda: _cuda.banded8_rows(g, st), 5)
+            print(f"row step {label} {len(qs)} pairs x {g.T} rows "
+                  f"pw{g.piecewise}: kernel {ms:.3f} ms, max_abs_err={err}, "
+                  f"plain on the card {p_ms:.1f} ms")
+            try:
+                split_line(f"{label} {len(qs)} pairs x {g.T} rows", g, st,
+                           ms)
+            except RuntimeError as e:
+                return fail(f"--split {e}")
+        err = ptxas_check(ptxas_wait)
+        return fail(err) if err else 0
+
     # ---- phase 2: kernel against the plain version on the card ----
     cases = [
         ("64x1kb band128 global pw1", 64, 1000, 128, MODE_GLOBAL,
@@ -399,6 +544,24 @@ def main() -> int:
         if bad:
             return fail(f"phase 2 {label}: kernel disagrees with plain: "
                         + "; ".join(bad))
+    # bands whose stripes fill no whole group of 8 (W = 1, 3, 9), every emit
+    for W, mode, gaps, m_ in ((1, MODE_GLOBAL, (-3, -2, 0, 0), mtx),
+                              (3, MODE_OVERLAP, (0, -4, 0, 0), mtx),
+                              (9, MODE_EXTEND, (-4, -2, -24, -1),
+                               O.set_score_matrix(2, -4))):
+        qs, ts = gen_pairs(16, 300, 0.10, SEED + 7 + W)
+        qs[-1] = qs[-1][:37]   # a short query in the batch's last pair
+        for emit in ("codes", "planes", "none"):
+            g, st = operands(qs, ts, mode, 16 * W, gaps, emit, m_)
+            if emit == "codes" and g.piecewise == 2:
+                continue
+            err, bad, _ = compare(g, st)
+            max_err = max(max_err, err)
+            print(f"phase2 16x300bp band{16 * W} {emit} pw{g.piecewise}: "
+                  f"W={W} T={g.T} max_abs_err={err}")
+            if bad:
+                return fail(f"phase 2 band {16 * W} {emit}: kernel disagrees "
+                            "with plain: " + "; ".join(bad))
     # global steering past the band (qlen >> tlen at band 16): full reset
     rng = np.random.default_rng(SEED + 6)
     qs = [rng.integers(0, 4, L).astype(np.uint8) for L in (800, 900, 700)]
@@ -433,6 +596,12 @@ def main() -> int:
           f"{cells / (kernel_ms / 1e3):.4g} cells/s; plain on the card "
           f"{plain_ms:.1f} ms; bound {b8_bound_ms:.4f} ms by {b8_bound_by} "
           f"({b8_bound_text})")
+
+    try:
+        split_line(f"codes {P.DEVICE_CHUNK}x2kb band128 pw1", g_main,
+                   st_main, kernel_ms)
+    except RuntimeError as e:
+        return fail(f"phase 3 {e}")
 
     torch.cuda.synchronize()
     metrics.reset()
@@ -847,7 +1016,6 @@ def main() -> int:
           f"({time.time() - t0:.1f}s on the CPU)")
     import contextlib
     import io
-    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         fa = os.path.join(tmp, "w.fa")
         with open(fa, "w") as f:
@@ -974,6 +1142,11 @@ def main() -> int:
                                       _cuda.banded8_rows(g_pl, st_pl))
     planes_bound_ms, planes_bound_by, planes_bound_text = bound(
         pl_bytes, pl_cells * BANDED8_PLANES_OPS_PER_CELL)
+    try:
+        split_line(f"planes {P.DEVICE_CHUNK}x2kb band128 pw2", g_pl, st_pl,
+                   planes_ms)
+    except RuntimeError as e:
+        return fail(f"phase 10 {e}")
     del st_pl
     print(f"phase10 planes kernel: {planes_ms:.3f} ms per launch of "
           f"{P.DEVICE_CHUNK} pairs (T={g_pl.T}, W={g_pl.W}, piecewise 2), "
@@ -1060,6 +1233,11 @@ def main() -> int:
     n_bytes, n_cells = banded8_work(g_n, st_n, _cuda.banded8_rows(g_n, st_n))
     none_bound_ms, none_bound_by, none_bound_text = bound(
         n_bytes, n_cells * BANDED8_NONE_OPS_PER_CELL)
+    try:
+        split_line(f"none 256x{P.T_CHUNK} rows band128 pw1", g_n, st_n,
+                   none_ms)
+    except RuntimeError as e:
+        return fail(f"phase 11 {e}")
     del st_n
     print(f"phase11 none kernel: {none_ms:.3f} ms per launch of 256 pairs x "
           f"{P.T_CHUNK} rows (W=8), {n_cells / (none_ms / 1e3):.4g} "
@@ -1110,6 +1288,10 @@ def main() -> int:
                     "one-shot run")
     print("phase11 chunked planes == one-shot planes: 16 pairs")
     stamp(11)
+
+    err = ptxas_check(ptxas_wait)
+    if err:
+        return fail(err)
 
     for mod in ("jax", "bsalign_tpu"):
         if mod in sys.modules:

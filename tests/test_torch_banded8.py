@@ -11,6 +11,7 @@ JAX package on identical numpy operands, on the CPU.
 - The plain forward run in resumed row chunks (init_reg/row0) against its
   one-shot run, for every emit; the scores-only emit against the planes
   and codes emits; planes rows at and past tlen.
+- The CUDA kernel's byte query operand (`query_bytes`).
 
 The hand-written CUDA kernel is held against the plain version on the card
 in test_torch_cuda.py.
@@ -301,3 +302,27 @@ def test_scores_only_matches_planes_and_codes(gaps, mode):
             if a is not None:
                 assert not a[tl:, ..., b].any(), fld
         assert (pl.begs[tl:, b] == none.final_rbeg[b]).all()
+
+
+def test_query_bytes_packing():
+    """The CUDA kernel's query operand: uint8, QP rounded up to 16 plus 16
+    bytes, the codes of qpad with 4 at and past each pair's qlen and past
+    QP, and codes above 4 as 4 (all of those score MIN8)."""
+    rng = np.random.default_rng(70)
+    lens = (37, 40, 41, 3)
+    qs = [rng.integers(0, 4, L).astype(np.uint8) for L in lens]
+    qpad, qlens, *_ = JP._pack_batch(qs, qs, 16)
+    QP = qpad.shape[1]
+    qpad_t = torch.as_tensor(qpad)
+    qpad_t[1, 5] = 7
+    qb = K.query_bytes(qpad_t)
+    assert qb.dtype == torch.uint8
+    assert tuple(qb.shape) == (len(lens), -(-QP // 16) * 16 + 16)
+    assert qb.shape[1] % 16 == 0 and qb.shape[1] >= QP + 16
+    expect = qpad_t.clamp(max=4).numpy()
+    np.testing.assert_array_equal(qb[:, :QP].numpy(), expect)
+    assert int(qb[1, 5]) == 4
+    for b, L in enumerate(lens):
+        np.testing.assert_array_equal(qb[b, :L].numpy(), qs[b] if b != 1
+                                      else expect[1, :L])
+        assert (qb[b, L:] == 4).all()

@@ -200,6 +200,49 @@ def test_kernel_resumed_chunks_match_one_shot(emit, cuda_device):
     _assert_same(joined, one)
 
 
+# (W, mode, gaps by emit): bands 16, 32, 48 and 144, whose last group of 8
+# stripes is partial (W = 2 has one group, W = 9 a second of one stripe)
+PARTIAL_GROUPS = [(1, MODE_GLOBAL), (2, MODE_OVERLAP), (3, MODE_EXTEND),
+                  (9, MODE_GLOBAL)]
+SHORT_TWO_PIECE = (-4, -2, -10, -1)   # piecewise 2 down to band 16
+
+
+@pytest.mark.parametrize("emit", ["codes", "planes", "none"])
+@pytest.mark.parametrize("case", range(len(PARTIAL_GROUPS)))
+def test_kernel_partial_groups_match_plain(case, emit, cuda_device):
+    """Every emit at W = 1, 2, 3 and 9, with query lengths at every residue
+    mod 8 and a short query in the batch's last pair, where a read past its
+    window would leave the query buffer."""
+    W, mode = PARTIAL_GROUPS[case]
+    gaps = {"codes": AFFINE, "planes": SHORT_TWO_PIECE, "none": LINEAR}[emit]
+    qs, ts = _pairs(tuple(130 + 9 * k for k in range(8)) + (100,), 0.12,
+                    70 + case)
+    qs = [q[:101 + k] for k, q in enumerate(qs[:-1])] + [qs[-1][:13]]
+    assert {len(q) % 8 for q in qs} == set(range(8))
+    pw, T, args = _operands(qs, ts, mode, gaps, W)
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, emit)
+    _assert_same(*_kernel_and_plain(g, args, cuda_device))
+
+
+@pytest.mark.parametrize("emit", ["codes", "planes", "none"])
+def test_kernel_cycle_split_leaves_outputs_alone(emit, cuda_device):
+    """A launch with the cycle split on gives the outputs of one with it
+    off, and counts cycles in every phase of every pair."""
+    from bsalign_tpu_torch.ops import _cuda
+    gaps = AFFINE if emit == "codes" else TWO_PIECE
+    qs, ts = _pairs((150, 200, 250), 0.12, 75)
+    pw, T, args = _operands(qs, ts, MODE_GLOBAL, gaps, 8)
+    g = K.Geometry(T, 8, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN, emit)
+    st = K.state_from_numpy(*args, T=T, device=cuda_device)
+    on = _cuda.banded8_rows(g, st, cycle_split=True)
+    off = _cuda.banded8_rows(g, st)
+    torch.cuda.synchronize()
+    cycles = on.pop("cycles")
+    assert tuple(cycles.shape) == (len(_cuda.SPLIT_PHASES), 3)
+    assert (cycles[:6] > 0).all()
+    _assert_same(on, off)
+
+
 @pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_EXTEND])
 def test_align_batch_two_piece_and_chunked_cuda_matches_cpu(mode,
                                                             cuda_device,
