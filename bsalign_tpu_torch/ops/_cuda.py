@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 PAIRS_PER_BLOCK = 2   # one warp per block: 256 pairs spread over 128 SMs
 
 EDIT_MAX_NW = 512     # widest edit band the kernel is built for (16384 bits)
-PEDIT_MAX_BW = 1022   # widest pedit band: bw + 2 cells, one thread each
+PEDIT_MAX_BW = 1022   # widest pedit band: bw cells, 32 per lane of one warp
 
 # kernel launches of bsa_banded8_rows in this process, by emit
 launches_codes = 0
@@ -68,7 +68,7 @@ def lib():
                 [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             so.bsa_edit_rows.restype = ctypes.c_int
             so.bsa_pedit_rows.argtypes = \
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             so.bsa_pedit_rows.restype = ctypes.c_int
             _LIB = so
     return _LIB
@@ -212,17 +212,21 @@ def edit_rows(g, ops):
     return out
 
 
-def pedit_rows(pk):
+def pedit_rows(pk, out=None):
     """Launch the pedit kernel on the packed jobs pk (ops.pedit.Packed, on
     one CUDA device). Returns the two flat uint8 output matrices as device
-    tensors, zero outside the rows each job writes."""
+    tensors; the kernel writes every byte of them, zero outside the rows
+    each job computes. `out` may give the two matrices to write into
+    (contiguous uint8 of pk.total bytes each, 16-byte aligned); by default
+    they are allocated uninitialised."""
     global pedit_launches
     if pk.bw > PEDIT_MAX_BW:
         raise NotImplementedError(
             f"pedit band of {pk.bw} cells exceeds the kernel's limit of "
-            f"{PEDIT_MAX_BW} (one thread per cell, {PEDIT_MAX_BW + 2} cells "
-            "per block)")
+            f"{PEDIT_MAX_BW} (32 cells per lane of one warp, bw + 2 <= "
+            f"{PEDIT_MAX_BW + 2})")
     for name, dt in (("rd", torch.uint8), ("cn", torch.uint8),
+                     ("rdm", torch.uint8), ("cnm", torch.uint8),
                      ("jobs", torch.int64)):
         t = getattr(pk, name)
         if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
@@ -232,14 +236,29 @@ def pedit_rows(pk):
     if tuple(pk.jobs.shape) != (J, 8):
         raise ValueError(f"pedit kernel: jobs must be [J, 8], got "
                          f"{tuple(pk.jobs.shape)}")
+    if pk.rdm.numel() != 4 * pk.rd.numel() \
+            or pk.cnm.numel() != 4 * pk.cn.numel() \
+            or (pk.rdm.data_ptr() | pk.cnm.data_ptr()) % 4:
+        raise ValueError("pedit kernel: rdm / cnm must hold 4 aligned "
+                         "bytes per byte of rd / cn")
     dev = pk.rd.device
-    out0 = torch.zeros(pk.total, dtype=torch.uint8, device=dev)
-    out1 = torch.zeros(pk.total, dtype=torch.uint8, device=dev)
+    if out is None:
+        out = tuple(torch.empty(pk.total, dtype=torch.uint8, device=dev)
+                    for _ in range(2))
+    for t in out:
+        if t.device != dev or t.dtype != torch.uint8 \
+                or not t.is_contiguous() or t.numel() != pk.total \
+                or t.data_ptr() % 16:
+            raise ValueError(f"pedit kernel: each output must be a "
+                             f"contiguous, 16-byte aligned uint8 tensor of "
+                             f"{pk.total} bytes on {dev}")
+    out0, out1 = out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().bsa_pedit_rows(pk.rd.data_ptr(), pk.cn.data_ptr(),
-                                  pk.jobs.data_ptr(), out0.data_ptr(),
-                                  out1.data_ptr(), J, pk.bw, pk.HW, stream)
+        rc = lib().bsa_pedit_rows(
+            pk.rd.data_ptr(), pk.cn.data_ptr(), pk.rdm.data_ptr(),
+            pk.cnm.data_ptr(), pk.jobs.data_ptr(), out0.data_ptr(),
+            out1.data_ptr(), J, pk.bw, pk.HW, stream)
     if rc != 0:
         raise RuntimeError(f"pedit kernel launch failed: CUDA error {rc}")
     pedit_launches += 1

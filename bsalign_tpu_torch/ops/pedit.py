@@ -12,7 +12,9 @@ host's traceback (native pedit_traceback) reads them and mutates the
 graph.
 
 `pedit_forward_batch` packs a batch of jobs into flat buffers on one
-device: the read side of each job, the consensus side once per window.
+device: the read side of each job, the consensus side once per window,
+each as a plane of bases and a plane of counts with the four counts of a
+position in one 32-bit word.
 On a CUDA device it launches the kernel, once for the whole batch, and
 never falls back; on the CPU it runs `forward_plain`, which steps the
 anti-diagonals in turn, vectorised over jobs x band cells in int32 with
@@ -58,18 +60,15 @@ class PeditJob:
 
 class Packed(NamedTuple):
     """A batch of jobs on one device."""
-    rd: torch.Tensor      # uint8, per job 5 planes of pad bytes: seqs0, mats0
-    cn: torch.Tensor      # uint8, per window 5 planes: seqs1, mats1
+    rd: torch.Tensor      # uint8, per job seqs0 (pad bytes)
+    cn: torch.Tensor      # uint8, per window seqs1 (pad bytes)
+    rdm: torch.Tensor     # uint8, per job mats0 by position, 4 counts each
+    cnm: torch.Tensor     # uint8, per window mats1 likewise (4 x offsets)
     jobs: torch.Tensor    # int64 [J, 8]: the JOB_* columns
     bw: int
     HW: int
     total: int            # bytes of each flat output matrix
     offs: np.ndarray      # int64 [J] output offset of each job
-
-
-def _planes(seqs, mats):
-    return np.concatenate([np.asarray(seqs, np.uint8).ravel(),
-                           np.asarray(mats, np.uint8).ravel()])
 
 
 def pack_jobs(jobs: List[PeditJob], device) -> Packed:
@@ -80,7 +79,7 @@ def pack_jobs(jobs: List[PeditJob], device) -> Packed:
         raise ValueError("pedit jobs of one batch must share bw and HW")
     rowlen = bw + 2
     tab = np.zeros((len(jobs), JOB_COLS), np.int64)
-    rd, cn, wins = [], [], {}
+    rd, cn, rdm, cnm, wins = [], [], [], [], {}
     rd_off = cn_off = out_off = 0
     for k, j in enumerate(jobs):
         pad = len(j.seqs0)
@@ -90,17 +89,19 @@ def pack_jobs(jobs: List[PeditJob], device) -> Packed:
         key = (id(j.seqs1), id(j.mats1))
         if key not in wins:
             wins[key] = cn_off
-            cn.append(_planes(j.seqs1, j.mats1))
-            cn_off += 5 * pad
-        rd.append(_planes(j.seqs0, j.mats0))
+            cn.append(np.asarray(j.seqs1, np.uint8))
+            cnm.append(np.asarray(j.mats1, np.uint8).T.ravel())
+            cn_off += pad
+        rd.append(np.asarray(j.seqs0, np.uint8))
+        rdm.append(np.asarray(j.mats0, np.uint8).T.ravel())
         tab[k] = (rd_off, wins[key], out_off, pad, j.mlen, j.mbeg, j.mend, 0)
-        rd_off += 5 * pad
+        rd_off += pad
         out_off += (2 * j.mlen + 2) * rowlen
 
-    def put(a, dtype):
-        return torch.as_tensor(a, device=device).to(dtype)
-    return Packed(put(np.concatenate(rd), U8), put(np.concatenate(cn), U8),
-                  put(tab, I64), bw, HW, out_off, tab[:, JOB_OUT].copy())
+    def put(a):
+        return torch.as_tensor(np.concatenate(a), device=device)
+    return Packed(put(rd), put(cn), put(rdm), put(cnm), put([tab]), bw, HW,
+                  out_off, tab[:, JOB_OUT].copy())
 
 
 def forward_plain(pk: Packed) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,6 +110,7 @@ def forward_plain(pk: Packed) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = pk.rd.device
     bw, HW, rowlen = pk.bw, pk.HW, pk.bw + 2
     rd, cn = pk.rd.to(I32), pk.cn.to(I32)
+    rdm, cnm = pk.rdm.to(I32), pk.cnm.to(I32)
     (rd_off, cn_off, out_off, pad, mlen, mbeg, mend) = (
         pk.jobs[:, c].view(-1, 1) for c in range(7))
     nsteps = (2 * (mend - mbeg) - 1).clamp(min=1)
@@ -134,9 +136,9 @@ def forward_plain(pk: Packed) -> Tuple[torch.Tensor, torch.Tensor]:
         rb = torch.where(okx, rd[rd_off + ixc], 4)
         cb = torch.where(oky, cn[cn_off + iyc], zero)
         xs = torch.where((cb < 4) & okx,
-                         rd[rd_off + (1 + cb.clamp(max=3)) * pad + ixc], zero)
+                         rdm[4 * (rd_off + ixc) + cb.clamp(max=3)], zero)
         ys = torch.where((rb < 4) & oky,
-                         cn[cn_off + (1 + rb.clamp(max=3)) * pad + iyc], zero)
+                         cnm[4 * (cn_off + iyc) + rb.clamp(max=3)], zero)
         if dirn:
             pu, pv = prev0[:, 2:2 + bw], prev1[:, 1:1 + bw]
         else:

@@ -4,6 +4,11 @@
     python3 chip_smoke.py            # every phase, as below
     python3 chip_smoke.py --split    # phase 1, then kernel A's row step
                                      # alone at the three shapes below
+    python3 chip_smoke.py --kernels  # phase 1, then kernels B and C alone:
+                                     # phase 5, the edit kernel at its
+                                     # main-path shape (phase 6's first
+                                     # part) and phase 7, each kernel's
+                                     # time beside its plain version's
 
 Phases, in order; any failure exits non-zero:
 
@@ -11,9 +16,11 @@ Phases, in order; any failure exits non-zero:
    CUDA kernels (csrc/*.cu: banded-8, edit and pedit, one nvcc per source
    started together, sm_90a, linked into one library) and of the host
    library (g++: the codes walker and the POA engine), with their build
-   seconds. Beside it, nvcc -Xptxas -v on the banded-8 source: the
-   registers, stack and spills of the main paths' instantiations are
-   printed at the end, and a spill fails the run.
+   seconds. Beside it, nvcc -Xptxas -v on each source: the registers,
+   stack and spills of the main paths' instantiations (banded-8 codes,
+   none and planes; edit at K 2, global; pedit at K 1) and the range over
+   every instantiation are printed at the end, and a spill in a main
+   path's instantiation fails the run.
 2. Banded-8 kernel against its plain PyTorch version, both on the card, on
    seeded pairs at 10% error (64 x 1 kb at band 128, 8 x 600 bp at band
    640, a full reset at band 16): codes, begs, score/qe/te and the final
@@ -35,17 +42,22 @@ Phases, in order; any failure exits non-zero:
    with target lengths spread over 0.5-1.5 x 2 kb, overlap, extend; 4 x
    5 kb global full band (NW 160); a hand-made trajectory whose band jumps
    past its width (full reset).
-6. The edit main path: `edit_batch` on 512 pairs x 2 kb, global, -W 0. The
+6. The edit main path. First the kernel against the plain version at the
+   main path's launch shape (256 pairs x 2 kb at NW 64) and its time over
+   20 launches. Then `edit_batch` on 512 pairs x 2 kb, global, -W 0. The
    edit kernel's launch count over that run must be at least 2, and the TSV
    of the first 32 pairs must equal the CPU path. Then the same pairs at
    -W 128 and `kmer_edit_batch` (k 13) on 64 pairs x 10 kb, each checked
    against the CPU path on 4 pairs.
 7. Pedit kernel against its plain PyTorch version, both on the card, with
-   tolerance 0 (uint8 outputs): the first realignment round's jobs of 128
-   seeded POA windows (20 reads x 800 bp at 12% error, band 32; the main
-   path's shape, timed), those of the first 16 windows also against the
-   host's bsa_pedit_forward; random jobs at bw 64 and 128; the widest band
-   the kernel takes (1022); the shortest jobs (mend = mbeg + 1, + 2).
+   tolerance 0 (uint8 outputs), the kernel writing into buffers filled
+   with 0xA5 so that a byte it leaves unwritten shows: the first
+   realignment round's jobs of 128 seeded POA windows (20 reads x 800 bp
+   at 12% error, band 32; the main path's shape, timed over 20 launches of
+   the whole launcher, allocations included), those of the first 16
+   windows also against the host's bsa_pedit_forward; random jobs at bw
+   34, 64, 96 and 128; the widest band the kernel takes (1022); the
+   shortest jobs (mend = mbeg + 1, + 2).
 8. The poa main path: `run_windows_lockstep` on the 128 windows with the
    default BSPOAPar on the card. The pedit kernel's launch count over that
    run must be at least 3 (one per realignment round), and cns, qlt, alt,
@@ -281,68 +293,87 @@ def edit_bytes(g, ops):
     return ins + rows * (8 * NW + 4) + B * (8 * NW + 16)
 
 
-def ptxas_report(src, flags):
-    """Start nvcc -Xptxas -v on the banded-8 source src in the background
-    (killed at exit if still running); returns a function that waits for
-    it and returns {(piecewise, mode, emit): (registers, stack bytes, spill
-    store bytes, spill load bytes)} for each instantiation of
-    banded8_rows_kernel."""
+# the main paths' instantiations of each kernel, by template arguments:
+# banded-8 (piecewise, mode, emit), edit (K words per lane, mode, vector
+# stores; NW 64 is K 2), pedit (K cells per lane; band 32 is K 1)
+PTXAS_MAIN = {
+    "banded8": (((1, 0, 0), "pw1 global codes"),
+                ((1, 0, 2), "pw1 global none"),
+                ((2, 0, 1), "pw2 global planes")),
+    "edit": (((2, 0, 1), "K 2 global (NW 64)"),),
+    "pedit": (((1,), "K 1 (band 32)"),),
+}
+
+
+def ptxas_report(srcs, flags):
+    """Start nvcc -Xptxas -v on each source in srcs in the background, all
+    together (killed at exit if still running); returns a function that
+    waits for them and returns {(kernel, template arguments): (registers,
+    stack bytes, spill store bytes, spill load bytes)} for each
+    instantiation of banded8_rows_kernel, edit_rows_kernel and
+    pedit_rows_kernel."""
     tmp = tempfile.mkdtemp()
-    proc = subprocess.Popen(
-        flags + ["-Xptxas", "-v", "-c", src, "-o",
-                 os.path.join(tmp, "banded8.o")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    atexit.register(proc.kill)
+    procs = []
+    for k, src in enumerate(srcs):
+        proc = subprocess.Popen(
+            flags + ["-Xptxas", "-v", "-c", src, "-o",
+                     os.path.join(tmp, f"{k}.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(proc.kill)
+        procs.append(proc)
 
     def wait():
-        text = proc.communicate()[0]
+        texts = [proc.communicate()[0] for proc in procs]
         shutil.rmtree(tmp, ignore_errors=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text}")
-        out, key = {}, None
-        for line in text.splitlines():
-            m = re.search(r"(?:Compiling entry function|Function properties "
-                          r"for) '?(\S+?)'?( for|$)", line)
-            if m:
-                k = re.search(r"banded8_rows_kernelILi(\d)ELi(\d)ELi(\d)E",
-                              m.group(1))
-                key = tuple(int(x) for x in k.groups()) if k else None
-                continue
-            if key is None:
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m:
-                out[key] = out.get(key, (0,)) [:1] + tuple(
-                    int(x) for x in m.groups())
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                out[key] = (int(m.group(1)),) + out.get(key, (0, 0, 0, 0))[1:]
+        out = {}
+        for proc, text in zip(procs, texts):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text}")
+            key = None
+            for line in text.splitlines():
+                m = re.search(r"(?:Compiling entry function|Function "
+                              r"properties for) '?(\S+?)'?( for|$)", line)
+                if m:
+                    k = re.search(r"\d(banded8|pedit|edit)_rows_kernelI"
+                                  r"((?:L[ib]\d+E)+)E", m.group(1))
+                    key = (k.group(1), tuple(int(x) for x in re.findall(
+                        r"L[ib](\d+)E", k.group(2)))) if k else None
+                    continue
+                if key is None:
+                    continue
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+                if m:
+                    out[key] = out.get(key, (0,))[:1] + tuple(
+                        int(x) for x in m.groups())
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    out[key] = (int(m.group(1)),) + out.get(
+                        key, (0, 0, 0, 0))[1:]
         return out
     return wait
 
 
 def ptxas_check(ptxas_wait):
-    """Print the registers, stack and spills of the banded-8 kernel's
-    main-path instantiations (piecewise 1 codes and none, piecewise 2
-    planes, all global) and the range over all; returns an error message
-    when one is missing or spills, else None."""
+    """Print the registers, stack and spills of each kernel's main-path
+    instantiations (PTXAS_MAIN) and the range over all of its
+    instantiations; returns an error message when one is missing or a
+    main-path one spills, else None."""
     ptxas = ptxas_wait()
-    for key, nm in (((1, 0, 0), "pw1 global codes"),
-                    ((1, 0, 2), "pw1 global none"),
-                    ((2, 0, 1), "pw2 global planes")):
-        if key not in ptxas:
-            return f"ptxas -v names no banded8_rows_kernel {key}"
-        regs, stack, sst, sld = ptxas[key]
-        print(f"ptxas banded8_rows_kernel {nm}: {regs} registers, {stack} "
-              f"bytes stack frame, {sst} bytes spill stores, {sld} bytes "
-              "spill loads")
-        if sst or sld:
-            return f"banded8_rows_kernel {nm} spills"
-    print(f"ptxas all {len(ptxas)} banded8 instantiations: registers "
-          f"{min(v[0] for v in ptxas.values())}-"
-          f"{max(v[0] for v in ptxas.values())}, spills in "
-          f"{sum(1 for v in ptxas.values() if v[2] or v[3])}")
+    for kern, mains in PTXAS_MAIN.items():
+        for args, nm in mains:
+            if (kern, args) not in ptxas:
+                return f"ptxas -v names no {kern}_rows_kernel {args}"
+            regs, stack, sst, sld = ptxas[(kern, args)]
+            print(f"ptxas {kern}_rows_kernel {nm}: {regs} registers, {stack} "
+                  f"bytes stack frame, {sst} bytes spill stores, {sld} bytes "
+                  "spill loads")
+            if sst or sld:
+                return f"{kern}_rows_kernel {nm} spills"
+        alls = [v for (k, _), v in ptxas.items() if k == kern]
+        print(f"ptxas all {len(alls)} {kern} instantiations: registers "
+              f"{min(v[0] for v in alls)}-{max(v[0] for v in alls)}, spills "
+              f"in {sum(1 for v in alls if v[2] or v[3])}")
     return None
 
 
@@ -386,8 +417,10 @@ def main() -> int:
     print(f"device: {name}")
     print(smi_line)   # the card's name and power limit, as nvidia-smi says
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    ptxas_wait = ptxas_report(os.path.join(_cuda.CSRC, "banded8.cu"),
-                              [_cuda._nvcc()] + _cuda.NVCC_FLAGS)
+    ptxas_wait = ptxas_report(
+        [os.path.join(_cuda.CSRC, f"{n}.cu")
+         for n in ("banded8", "edit", "pedit")],
+        [_cuda._nvcc()] + _cuda.NVCC_FLAGS)
     _cuda.lib()
     native.rowops_lib()
     print(f"build: kernels {_cuda.build_seconds:.1f}s (nvcc sm_90a), "
@@ -518,6 +551,308 @@ def main() -> int:
                            ms)
             except RuntimeError as e:
                 return fail(f"--split {e}")
+        err = ptxas_check(ptxas_wait)
+        return fail(err) if err else 0
+
+    # ---- phases 5, 6 (its kernel part) and 7, also run by --kernels ----
+    def edit_operands(qs, ts, mode, bw, banded, traj=None):
+        T, _, (qeq, qlens, tpad, tlens, rbegs, movxs) = D._pack_bucket(
+            qs, ts, bw, banded)
+        if traj is not None:
+            rbegs, movxs = traj(rbegs, tlens, qlens, T)
+        g = KE.Geometry(T, bw // 32, mode)
+        ops = KE.operands_from_numpy(qeq, qlens, tpad, tlens, rbegs, movxs,
+                                     T=T, device=dev)
+        return g, ops
+
+    def edit_compare(g, ops):
+        """Kernel vs plain on the same device tensors: rows < tlen of pm,
+        pp and sbeg, the final planes and scal whole, and the global
+        score. Returns max |diff|, the disagreements and the plain
+        version's milliseconds."""
+        rk = _cuda.edit_rows(g, ops)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rp = KE.forward_plain(g, ops)
+        e1.record()
+        torch.cuda.synchronize()
+        pairs = []
+        for b, n in enumerate(ops.tlen.tolist()):
+            pairs += [(f"{f}[{b}]", rk[f][b, :n], rp[f][b, :n])
+                      for f in ("pm", "pp", "sbeg")]
+        pairs += [(f, rk[f], rp[f]) for f in ("fin_pm", "fin_pp", "scal")]
+        pairs.append(("final_score", KE.final_score(g, rk, ops.qlen),
+                      KE.final_score(g, rp, ops.qlen)))
+        worst, bad = 0, []
+        for nm, a, b in pairs:
+            d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            worst = max(worst, d)
+            if d:
+                bad.append(f"{nm} max|diff| {d}")
+        return worst, bad, e0.elapsed_time(e1)
+
+    def spread_targets(n, seed):
+        """2 kb queries with targets cut or extended to 0.5-1.5 x 2 kb."""
+        qs, ts = gen_pairs(n, 2000, 0.10, seed)
+        rng = np.random.default_rng(seed)
+        out = []
+        for t in ts:
+            tl = int(2000 * (0.5 + rng.random()))
+            out.append(t[:tl] if tl <= len(t) else np.concatenate(
+                [t, rng.integers(0, 4, tl - len(t)).astype(np.uint8)]))
+        return qs, out
+
+    def jumpy(rbegs, tlens, qlens, T):
+        """Band starts that jump past the band's width every 37 rows."""
+        r = np.zeros_like(rbegs)
+        for b, tl in enumerate(tlens):
+            cur = 0
+            for i in range(int(tl)):
+                cur += 64 + 7 * (i % 3) if i % 37 == 5 else (i % 11 == 3) * 13
+                r[i, b] = min(cur, int(qlens[b]) - 8)
+        m = np.diff(r, axis=0, prepend=0).astype(np.int32)
+        for b, tl in enumerate(tlens):
+            m[int(tl):, b] = 0
+        return r, m
+
+    def phase5():
+        """The edit kernel against its plain version on phase 5's cases;
+        returns the largest error."""
+        rng = np.random.default_rng(SEED + 16)
+        cases5 = [
+            ("(a) 64x2kb global full band",
+             gen_pairs(64, 2000, 0.10, SEED + 11), MODE_GLOBAL, 2048, False,
+             None),
+            ("(b) 64x2kb global -W 128, targets 0.5-1.5x",
+             spread_targets(64, SEED + 12), MODE_GLOBAL, 128, True, None),
+            ("(c) 64x2kb overlap", gen_pairs(64, 2000, 0.10, SEED + 13),
+             MODE_OVERLAP, 2048, False, None),
+            ("(d) 64x2kb extend", gen_pairs(64, 2000, 0.10, SEED + 14),
+             MODE_EXTEND, 2048, False, None),
+            ("(e) 4x5kb global full band", gen_pairs(4, 5000, 0.10, SEED + 15),
+             MODE_GLOBAL, 5120, False, None),
+            ("(f) 2 pairs, band 64, movx >= band",
+             ([rng.integers(0, 4, L).astype(np.uint8) for L in (1500, 1200)],
+              [rng.integers(0, 4, L).astype(np.uint8) for L in (200, 150)]),
+             MODE_GLOBAL, 64, True, jumpy),
+        ]
+        edit_err = 0
+        for label, (qs5, ts5), mode, bw5, banded, traj in cases5:
+            g, ops = edit_operands(qs5, ts5, mode, bw5, banded, traj)
+            err, bad, p_ms = edit_compare(g, ops)
+            edit_err = max(edit_err, err)
+            k_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 5)
+            extra = ""
+            if traj is not None:
+                extra = f", max movx {int(ops.movxs.max())}"
+                if int(ops.movxs.max()) < bw5:
+                    raise RuntimeError(f"phase 5 {label}: no row moves past "
+                                       "the band")
+            print(f"phase5 {label}: NW={g.NW} T={g.T}{extra} "
+                  f"max_abs_err={err}; kernel {k_ms:.3f} ms, plain on the "
+                  f"card {p_ms:.1f} ms")
+            if bad:
+                raise RuntimeError(f"phase 5 {label}: kernel disagrees with "
+                                   "plain: " + "; ".join(bad[:8]))
+        stamp(5)
+        return edit_err
+
+    def edit_main_kernel(qs, ts):
+        """The edit kernel at the main path's launch shape (the first
+        DEVICE_CHUNK of the pairs at band 2048) against the plain version,
+        its time and bound, and its time at -W 128. Returns (main_idx,
+        err, ms, plain_ms, bound_ms, bound_by)."""
+        main_idx = [i for i, (q, t) in enumerate(zip(qs, ts))
+                    if roundup(roundup(len(q), 64), 256) == 2048
+                    ][:D.DEVICE_CHUNK]
+        g_e, ops_e = edit_operands([qs[i] for i in main_idx],
+                                   [ts[i] for i in main_idx], MODE_GLOBAL,
+                                   2048, False)
+        err, bad, edit_plain_ms = edit_compare(g_e, ops_e)
+        if bad:
+            raise RuntimeError("phase 6 chunk: kernel disagrees with plain: "
+                               + "; ".join(bad[:8]))
+        edit_ms = timed_ms(lambda: _cuda.edit_rows(g_e, ops_e), 20)
+        rows = int(ops_e.tlen.sum())
+        e_cells = float(rows) * g_e.bw
+        edit_bound_ms, edit_bound_by, edit_bound_text = bound(
+            edit_bytes(g_e, ops_e), rows * g_e.NW * EDIT_OPS_PER_WORD_ROW)
+        print(f"phase6 kernel: {edit_ms:.3f} ms per launch of "
+              f"{len(main_idx)} pairs (T={g_e.T}, NW={g_e.NW}), "
+              f"{e_cells / (edit_ms / 1e3):.4g} cells/s; plain on the card "
+              f"{edit_plain_ms:.1f} ms; bound "
+              f"{edit_bound_ms:.4f} ms by {edit_bound_by} ({edit_bound_text})")
+        del ops_e
+        g_w, ops_w = edit_operands([qs[i] for i in main_idx],
+                                   [ts[i] for i in main_idx], MODE_GLOBAL,
+                                   128, True)
+        print(f"phase6 kernel at -W 128 on the same pairs (NW={g_w.NW}): "
+              f"{timed_ms(lambda: _cuda.edit_rows(g_w, ops_w), 5):.3f} ms")
+        del ops_w
+        return (main_idx, err, edit_ms, edit_plain_ms, edit_bound_ms,
+                edit_bound_by)
+
+    # phase 7's modules
+    from bsalign_tpu_torch.native import rowops as NR
+    from bsalign_tpu_torch.ops import pedit as PE
+    from bsalign_tpu_torch.poa import batch as PB
+    from bsalign_tpu_torch.poa.core import BSPOA, BSPOAPar
+
+    def phase7():
+        """The pedit kernel against its plain version (and the host's
+        bsa_pedit_forward) on phase 7's cases and the main path's
+        first round, timed. Returns (windows, err, ms, plain_ms, bound_ms,
+        bound_by)."""
+        rng = np.random.default_rng(SEED + 30)
+        windows = [gen_poa_window(rng) for _ in range(128)]
+        t0 = time.time()
+        round_jobs = []
+        for w in windows:
+            g = BSPOA(BSPOAPar(), device=dev)
+            g.beg()
+            for s in w:
+                g.push(s)
+            g.end_begin()
+            g.msa()
+            g.cns_call()
+            ctx = g._remsa_prepare(g.par.editbw // 2, 1)
+            round_jobs.append(g._remsa_dev_build(ctx, 0)[0])
+        print(f"phase7 first-round jobs of 128 windows built on the host in "
+              f"{time.time() - t0:.2f}s")
+
+        def pedit_compare(jobs):
+            """Kernel vs plain on the same device buffers: max |diff| over
+            both whole output matrices (the kernel's written over bytes of
+            0xA5, so a byte it leaves unwritten shows), and the plain
+            version's ms."""
+            pk = PE.pack_jobs(jobs, dev)
+            k0, k1 = _cuda.pedit_rows(pk, out=tuple(
+                torch.full((pk.total,), 0xA5, dtype=torch.uint8, device=dev)
+                for _ in range(2)))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            p0, p1 = PE.forward_plain(pk)
+            e1.record()
+            torch.cuda.synchronize()
+            err = max(int((k0.int() - p0.int()).abs().max()),
+                      int((k1.int() - p1.int()).abs().max()))
+            return pk, err, e0.elapsed_time(e1), (k0.cpu().numpy(),
+                                                  k1.cpu().numpy())
+
+        def native_err(jobs, pk, host):
+            """Max |diff| of the kernel's rows against bsa_pedit_forward."""
+            worst = 0
+            for j, o in zip(jobs, pk.offs.tolist()):
+                rowlen = j.bw + 2
+                n = (2 * j.mlen + 2) * rowlen
+                n0 = np.zeros(n, np.uint8)
+                n1 = np.zeros(n, np.uint8)
+                NR.pedit_forward(n0, n1, j.seqs0, j.seqs1, j.mats0, j.mats1,
+                                 j.mlen, j.mbeg, j.mend, j.bw, j.HW, rowlen)
+                lo, hi = 2 * j.mbeg * rowlen, 2 * j.mend * rowlen
+                for h, ref in zip(host, (n0, n1)):
+                    worst = max(worst, int(np.abs(
+                        h[o + lo:o + hi].astype(np.int32)
+                        - ref[lo:hi].astype(np.int32)).max()))
+            return worst
+
+        def rand_job(rng, mlen, bw, span=None):
+            HW = bw // 2
+            pad = mlen + bw
+            seqs0 = np.full(pad, 4, np.uint8)
+            pos = np.sort(rng.choice(mlen, int(rng.integers(mlen // 2, mlen)),
+                                     replace=False))
+            seqs0[HW + pos] = rng.integers(0, 4, len(pos))
+            seqs1 = np.zeros(pad, np.uint8)
+            seqs1[HW:HW + mlen] = rng.integers(0, 5, mlen)
+            mats0 = np.zeros((4, pad), np.uint8)
+            mats1 = np.zeros((4, pad), np.uint8)
+            mats0[:, HW:HW + mlen] = rng.integers(0, 6, (4, mlen))
+            mats1[:, HW:HW + mlen] = rng.integers(0, 251, (4, mlen))
+            if span is None:
+                mbeg = int(rng.integers(0, mlen // 4))
+                mend = int(rng.integers(mbeg + 2, mlen + 1))
+            else:
+                mbeg = int(rng.integers(0, mlen - span + 1))
+                mend = mbeg + span
+            return PE.PeditJob(seqs0, seqs1, mats0, mats1, mlen, mbeg, mend,
+                               bw, HW)
+
+        jobs16 = [j for js in round_jobs[:16] for j in js]
+        main_jobs = [j for js in round_jobs for j in js]
+        cases7 = [
+            ("(a) round 1 of 16 windows, bw 32", jobs16, True),
+            ("(b) 32 random jobs, bw 64",
+             [rand_job(rng, int(rng.integers(200, 900)), 64)
+              for _ in range(32)], False),
+            ("(c) 32 random jobs, bw 128",
+             [rand_job(rng, int(rng.integers(200, 900)), 128)
+              for _ in range(32)], False),
+            (f"(d) 8 random jobs, bw {_cuda.PEDIT_MAX_BW} (the widest)",
+             [rand_job(rng, int(rng.integers(200, 600)), _cuda.PEDIT_MAX_BW)
+              for _ in range(8)], True),
+            ("(e) shortest jobs, mend = mbeg + 2 and + 1",
+             [rand_job(rng, 60, 32, span=s) for s in (2, 1, 2, 1)], True),
+            ("(f) 32 random jobs, bw 34 (17 lanes of 2 cells)",
+             [rand_job(rng, int(rng.integers(200, 900)), 34)
+              for _ in range(32)], True),
+            ("(g) 32 random jobs, bw 96 (24 lanes of 4 cells)",
+             [rand_job(rng, int(rng.integers(200, 900)), 96)
+              for _ in range(32)], False),
+        ]
+        pedit_err = 0
+        for label, jobs, vs_native in cases7:
+            pk, err, p_ms, host = pedit_compare(jobs)
+            pedit_err = max(pedit_err, err)
+            extra = ""
+            if vs_native:
+                nerr = native_err(jobs, pk, host)
+                pedit_err = max(pedit_err, nerr)
+                extra = f", against bsa_pedit_forward {nerr}"
+                err = max(err, nerr)
+            k_ms = timed_ms(lambda: _cuda.pedit_rows(pk), 5)
+            print(f"phase7 {label}: {len(jobs)} jobs, "
+                  f"max_abs_err={err}{extra}; kernel {k_ms:.3f} ms, plain on "
+                  f"the card {p_ms:.1f} ms")
+            if err:
+                raise RuntimeError(f"phase 7 {label}: kernel disagrees "
+                                   f"(max|diff| {err})")
+        pk_main, err, pedit_plain_ms, _ = pedit_compare(main_jobs)
+        pedit_err = max(pedit_err, err)
+        if err:
+            raise RuntimeError(f"phase 7 main round: kernel disagrees "
+                               f"(max|diff| {err})")
+        pedit_ms = timed_ms(lambda: _cuda.pedit_rows(pk_main), 20)
+        p_bytes, p_cells = pedit_work(main_jobs)
+        pedit_bound_ms, pedit_bound_by, pedit_bound_text = bound(
+            p_bytes, p_cells * PEDIT_OPS_PER_CELL)
+        print(f"phase7 main round: {len(main_jobs)} jobs of 128 windows, "
+              f"max_abs_err={err}; kernel {pedit_ms:.3f} ms, "
+              f"{p_cells / (pedit_ms / 1e3):.4g} cells/s; plain on the card "
+              f"{pedit_plain_ms:.1f} ms; bound {pedit_bound_ms:.4f} ms by "
+              f"{pedit_bound_by} ({pedit_bound_text})")
+        stamp(7)
+        return (windows, pedit_err, pedit_ms, pedit_plain_ms,
+                pedit_bound_ms, pedit_bound_by)
+
+    if "--kernels" in sys.argv[1:]:
+        # kernels B and C alone: phase 5, the edit kernel at its main-path
+        # shape, phase 7; each kernel's time beside its plain version's
+        try:
+            e_err = phase5()
+            qs, ts = gen_pairs(512, 2000, 0.10, SEED + 20)
+            _, err, e_ms, e_plain, e_bound, e_by = edit_main_kernel(qs, ts)
+            _, p_err, p_ms, p_plain, p_bound, p_by = phase7()
+        except RuntimeError as e:
+            return fail(str(e))
+        print(f"kernel edit_rows, 256 pairs x 2 kb at NW 64: {e_ms:.4f} ms, "
+              f"plain on the card {e_plain:.1f} ms, bound {e_bound:.4f} ms "
+              f"by {e_by}, max_abs_err={max(e_err, err)}")
+        print(f"kernel pedit_rows, round 1 of 128 windows at band 32: "
+              f"{p_ms:.4f} ms, plain on the card {p_plain:.1f} ms, bound "
+              f"{p_bound:.4f} ms by {p_by}, max_abs_err={p_err}")
         err = ptxas_check(ptxas_wait)
         return fail(err) if err else 0
 
@@ -671,130 +1006,19 @@ def main() -> int:
     stamp(4)
 
     # ---- phase 5: the edit kernel against its plain version ----
-    def edit_operands(qs, ts, mode, bw, banded, traj=None):
-        T, _, (qeq, qlens, tpad, tlens, rbegs, movxs) = D._pack_bucket(
-            qs, ts, bw, banded)
-        if traj is not None:
-            rbegs, movxs = traj(rbegs, tlens, qlens, T)
-        g = KE.Geometry(T, bw // 32, mode)
-        ops = KE.operands_from_numpy(qeq, qlens, tpad, tlens, rbegs, movxs,
-                                     T=T, device=dev)
-        return g, ops
-
-    def edit_compare(g, ops):
-        """Kernel vs plain on the same device tensors: rows < tlen of pm,
-        pp and sbeg, the final planes and scal whole, and the global
-        score. Returns max |diff|, the disagreements and the plain
-        version's milliseconds."""
-        rk = _cuda.edit_rows(g, ops)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        rp = KE.forward_plain(g, ops)
-        e1.record()
-        torch.cuda.synchronize()
-        pairs = []
-        for b, n in enumerate(ops.tlen.tolist()):
-            pairs += [(f"{f}[{b}]", rk[f][b, :n], rp[f][b, :n])
-                      for f in ("pm", "pp", "sbeg")]
-        pairs += [(f, rk[f], rp[f]) for f in ("fin_pm", "fin_pp", "scal")]
-        pairs.append(("final_score", KE.final_score(g, rk, ops.qlen),
-                      KE.final_score(g, rp, ops.qlen)))
-        worst, bad = 0, []
-        for nm, a, b in pairs:
-            d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
-            worst = max(worst, d)
-            if d:
-                bad.append(f"{nm} max|diff| {d}")
-        return worst, bad, e0.elapsed_time(e1)
-
-    def spread_targets(n, seed):
-        """2 kb queries with targets cut or extended to 0.5-1.5 x 2 kb."""
-        qs, ts = gen_pairs(n, 2000, 0.10, seed)
-        rng = np.random.default_rng(seed)
-        out = []
-        for t in ts:
-            tl = int(2000 * (0.5 + rng.random()))
-            out.append(t[:tl] if tl <= len(t) else np.concatenate(
-                [t, rng.integers(0, 4, tl - len(t)).astype(np.uint8)]))
-        return qs, out
-
-    def jumpy(rbegs, tlens, qlens, T):
-        """Band starts that jump past the band's width every 37 rows."""
-        r = np.zeros_like(rbegs)
-        for b, tl in enumerate(tlens):
-            cur = 0
-            for i in range(int(tl)):
-                cur += 64 + 7 * (i % 3) if i % 37 == 5 else (i % 11 == 3) * 13
-                r[i, b] = min(cur, int(qlens[b]) - 8)
-        m = np.diff(r, axis=0, prepend=0).astype(np.int32)
-        for b, tl in enumerate(tlens):
-            m[int(tl):, b] = 0
-        return r, m
-
-    rng = np.random.default_rng(SEED + 16)
-    cases5 = [
-        ("(a) 64x2kb global full band", gen_pairs(64, 2000, 0.10, SEED + 11),
-         MODE_GLOBAL, 2048, False, None),
-        ("(b) 64x2kb global -W 128, targets 0.5-1.5x",
-         spread_targets(64, SEED + 12), MODE_GLOBAL, 128, True, None),
-        ("(c) 64x2kb overlap", gen_pairs(64, 2000, 0.10, SEED + 13),
-         MODE_OVERLAP, 2048, False, None),
-        ("(d) 64x2kb extend", gen_pairs(64, 2000, 0.10, SEED + 14),
-         MODE_EXTEND, 2048, False, None),
-        ("(e) 4x5kb global full band", gen_pairs(4, 5000, 0.10, SEED + 15),
-         MODE_GLOBAL, 5120, False, None),
-        ("(f) 2 pairs, band 64, movx >= band",
-         ([rng.integers(0, 4, L).astype(np.uint8) for L in (1500, 1200)],
-          [rng.integers(0, 4, L).astype(np.uint8) for L in (200, 150)]),
-         MODE_GLOBAL, 64, True, jumpy),
-    ]
-    edit_err = 0
-    for label, (qs5, ts5), mode, bw5, banded, traj in cases5:
-        g, ops = edit_operands(qs5, ts5, mode, bw5, banded, traj)
-        err, bad, p_ms = edit_compare(g, ops)
-        edit_err = max(edit_err, err)
-        k_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 5)
-        extra = ""
-        if traj is not None:
-            extra = f", max movx {int(ops.movxs.max())}"
-            if int(ops.movxs.max()) < bw5:
-                return fail(f"phase 5 {label}: no row moves past the band")
-        print(f"phase5 {label}: NW={g.NW} T={g.T}{extra} max_abs_err={err}; "
-              f"kernel {k_ms:.3f} ms, plain on the card {p_ms:.1f} ms")
-        if bad:
-            return fail(f"phase 5 {label}: kernel disagrees with plain: "
-                        + "; ".join(bad[:8]))
-    stamp(5)
+    try:
+        edit_err = phase5()
+    except RuntimeError as e:
+        return fail(str(e))
 
     # ---- phase 6: the edit main path ----
     qs, ts = gen_pairs(512, 2000, 0.10, SEED + 20)
-    main_idx = [i for i, (q, t) in enumerate(zip(qs, ts))
-                if roundup(roundup(len(q), 64), 256) == 2048][:D.DEVICE_CHUNK]
-    g_e, ops_e = edit_operands([qs[i] for i in main_idx],
-                               [ts[i] for i in main_idx], MODE_GLOBAL, 2048,
-                               False)
-    err, bad, edit_plain_ms = edit_compare(g_e, ops_e)
+    try:
+        main_idx, err, edit_ms, edit_plain_ms, edit_bound_ms, \
+            edit_bound_by = edit_main_kernel(qs, ts)
+    except RuntimeError as e:
+        return fail(str(e))
     edit_err = max(edit_err, err)
-    if bad:
-        return fail("phase 6 chunk: kernel disagrees with plain: "
-                    + "; ".join(bad[:8]))
-    edit_ms = timed_ms(lambda: _cuda.edit_rows(g_e, ops_e), 5)
-    rows = int(ops_e.tlen.sum())
-    e_cells = float(rows) * g_e.bw
-    edit_bound_ms, edit_bound_by, edit_bound_text = bound(
-        edit_bytes(g_e, ops_e), rows * g_e.NW * EDIT_OPS_PER_WORD_ROW)
-    print(f"phase6 kernel: {edit_ms:.3f} ms per launch of {len(main_idx)} "
-          f"pairs (T={g_e.T}, NW={g_e.NW}), {e_cells / (edit_ms / 1e3):.4g} "
-          f"cells/s; plain on the card {edit_plain_ms:.1f} ms; bound "
-          f"{edit_bound_ms:.4f} ms by {edit_bound_by} ({edit_bound_text})")
-    del ops_e
-    g_w, ops_w = edit_operands([qs[i] for i in main_idx],
-                               [ts[i] for i in main_idx], MODE_GLOBAL, 128,
-                               True)
-    print(f"phase6 kernel at -W 128 on the same pairs (NW={g_w.NW}): "
-          f"{timed_ms(lambda: _cuda.edit_rows(g_w, ops_w), 5):.3f} ms")
-    del ops_w
 
     torch.cuda.synchronize()
     metrics.reset()
@@ -856,130 +1080,12 @@ def main() -> int:
     stamp(6)
 
     # ---- phase 7: the pedit kernel against its plain version ----
-    from bsalign_tpu_torch.native import rowops as NR
-    from bsalign_tpu_torch.ops import pedit as PE
-    from bsalign_tpu_torch.poa import batch as PB
-    from bsalign_tpu_torch.poa.core import BSPOA, BSPOAPar
+    try:
+        windows, pedit_err, pedit_ms, pedit_plain_ms, pedit_bound_ms, \
+            pedit_bound_by = phase7()
+    except RuntimeError as e:
+        return fail(str(e))
 
-    rng = np.random.default_rng(SEED + 30)
-    windows = [gen_poa_window(rng) for _ in range(128)]
-    t0 = time.time()
-    round_jobs = []
-    for w in windows:
-        g = BSPOA(BSPOAPar(), device=dev)
-        g.beg()
-        for s in w:
-            g.push(s)
-        g.end_begin()
-        g.msa()
-        g.cns_call()
-        ctx = g._remsa_prepare(g.par.editbw // 2, 1)
-        round_jobs.append(g._remsa_dev_build(ctx, 0)[0])
-    print(f"phase7 first-round jobs of 128 windows built on the host in "
-          f"{time.time() - t0:.2f}s")
-
-    def pedit_compare(jobs):
-        """Kernel vs plain on the same device buffers: max |diff| over
-        both whole output matrices, and the plain version's ms."""
-        pk = PE.pack_jobs(jobs, dev)
-        k0, k1 = _cuda.pedit_rows(pk)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        p0, p1 = PE.forward_plain(pk)
-        e1.record()
-        torch.cuda.synchronize()
-        err = max(int((k0.int() - p0.int()).abs().max()),
-                  int((k1.int() - p1.int()).abs().max()))
-        return pk, err, e0.elapsed_time(e1), (k0.cpu().numpy(),
-                                              k1.cpu().numpy())
-
-    def native_err(jobs, pk, host):
-        """Max |diff| of the kernel's rows against bsa_pedit_forward."""
-        worst = 0
-        for j, o in zip(jobs, pk.offs.tolist()):
-            rowlen = j.bw + 2
-            n = (2 * j.mlen + 2) * rowlen
-            n0 = np.zeros(n, np.uint8)
-            n1 = np.zeros(n, np.uint8)
-            NR.pedit_forward(n0, n1, j.seqs0, j.seqs1, j.mats0, j.mats1,
-                             j.mlen, j.mbeg, j.mend, j.bw, j.HW, rowlen)
-            lo, hi = 2 * j.mbeg * rowlen, 2 * j.mend * rowlen
-            for h, ref in zip(host, (n0, n1)):
-                worst = max(worst, int(np.abs(
-                    h[o + lo:o + hi].astype(np.int32)
-                    - ref[lo:hi].astype(np.int32)).max()))
-        return worst
-
-    def rand_job(rng, mlen, bw, span=None):
-        HW = bw // 2
-        pad = mlen + bw
-        seqs0 = np.full(pad, 4, np.uint8)
-        pos = np.sort(rng.choice(mlen, int(rng.integers(mlen // 2, mlen)),
-                                 replace=False))
-        seqs0[HW + pos] = rng.integers(0, 4, len(pos))
-        seqs1 = np.zeros(pad, np.uint8)
-        seqs1[HW:HW + mlen] = rng.integers(0, 5, mlen)
-        mats0 = np.zeros((4, pad), np.uint8)
-        mats1 = np.zeros((4, pad), np.uint8)
-        mats0[:, HW:HW + mlen] = rng.integers(0, 6, (4, mlen))
-        mats1[:, HW:HW + mlen] = rng.integers(0, 251, (4, mlen))
-        if span is None:
-            mbeg = int(rng.integers(0, mlen // 4))
-            mend = int(rng.integers(mbeg + 2, mlen + 1))
-        else:
-            mbeg = int(rng.integers(0, mlen - span + 1))
-            mend = mbeg + span
-        return PE.PeditJob(seqs0, seqs1, mats0, mats1, mlen, mbeg, mend, bw,
-                           HW)
-
-    jobs16 = [j for js in round_jobs[:16] for j in js]
-    main_jobs = [j for js in round_jobs for j in js]
-    cases7 = [
-        ("(a) round 1 of 16 windows, bw 32", jobs16, True),
-        ("(b) 32 random jobs, bw 64",
-         [rand_job(rng, int(rng.integers(200, 900)), 64) for _ in range(32)],
-         False),
-        ("(c) 32 random jobs, bw 128",
-         [rand_job(rng, int(rng.integers(200, 900)), 128)
-          for _ in range(32)], False),
-        (f"(d) 8 random jobs, bw {_cuda.PEDIT_MAX_BW} (the widest)",
-         [rand_job(rng, int(rng.integers(200, 600)), _cuda.PEDIT_MAX_BW)
-          for _ in range(8)], True),
-        ("(e) shortest jobs, mend = mbeg + 2 and + 1",
-         [rand_job(rng, 60, 32, span=s) for s in (2, 1, 2, 1)], True),
-    ]
-    pedit_err = 0
-    for label, jobs, vs_native in cases7:
-        pk, err, p_ms, host = pedit_compare(jobs)
-        pedit_err = max(pedit_err, err)
-        extra = ""
-        if vs_native:
-            nerr = native_err(jobs, pk, host)
-            pedit_err = max(pedit_err, nerr)
-            extra = f", against bsa_pedit_forward {nerr}"
-            err = max(err, nerr)
-        k_ms = timed_ms(lambda: _cuda.pedit_rows(pk), 5)
-        print(f"phase7 {label}: {len(jobs)} jobs, max_abs_err={err}{extra}; "
-              f"kernel {k_ms:.3f} ms, plain on the card {p_ms:.1f} ms")
-        if err:
-            return fail(f"phase 7 {label}: kernel disagrees (max|diff| "
-                        f"{err})")
-    pk_main, err, pedit_plain_ms, _ = pedit_compare(main_jobs)
-    pedit_err = max(pedit_err, err)
-    if err:
-        return fail(f"phase 7 main round: kernel disagrees (max|diff| {err})")
-    pedit_ms = timed_ms(lambda: _cuda.pedit_rows(pk_main), 5)
-    p_bytes, p_cells = pedit_work(main_jobs)
-    pedit_bound_ms, pedit_bound_by, pedit_bound_text = bound(
-        p_bytes, p_cells * PEDIT_OPS_PER_CELL)
-    print(f"phase7 main round: {len(main_jobs)} jobs of 128 windows, "
-          f"max_abs_err={err}; kernel {pedit_ms:.3f} ms, "
-          f"{p_cells / (pedit_ms / 1e3):.4g} cells/s; plain on the card "
-          f"{pedit_plain_ms:.1f} ms; bound {pedit_bound_ms:.4f} ms by "
-          f"{pedit_bound_by} ({pedit_bound_text})")
-    del pk_main, round_jobs, main_jobs, jobs16
-    stamp(7)
 
     # ---- phase 8: the poa main path ----
     torch.cuda.synchronize()

@@ -426,6 +426,60 @@ def test_pedit_kernel_refuses_wide_band_and_cpu(cuda_device):
         _cuda.pedit_rows(PE.pack_jobs([_mk_job(rng, 40, 32)], "cpu"))
 
 
+# every K boundary of the pedit kernel's cells per lane (1, 2, 4, 32)
+@pytest.mark.parametrize("bw", [2, 30, 32, 34, 64, 96, 1022])
+def test_pedit_kernel_writes_every_byte(bw, cuda_device):
+    """Jobs with mbeg > 0 and mend < mlen, the kernel writing into buffers
+    filled with 0xA5: the whole matrices equal the plain version's, so the
+    kernel writes the zero rows outside [2*mbeg, 2*mend) itself."""
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.ops import pedit as PE
+    from .test_torch_pedit import _mk_job
+    rng = np.random.default_rng(100 + bw)
+    wide = bw > 500
+    jobs = [_mk_job(rng, int(rng.integers(20, 80 if wide else 200)), bw)
+            for _ in range(3 if wide else 6)]
+    for j in jobs:
+        j.mbeg = max(j.mbeg, 2)
+        j.mend = max(j.mbeg + 1, min(j.mend, j.mlen - 3))
+    pk = PE.pack_jobs(jobs, cuda_device)
+    out = tuple(torch.full((pk.total,), 0xA5, dtype=torch.uint8,
+                           device=cuda_device) for _ in range(2))
+    k0, k1 = _cuda.pedit_rows(pk, out=out)
+    p0, p1 = PE.forward_plain(pk)
+    torch.cuda.synchronize()
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
+
+
+# every K of the edit kernel near its boundaries and the widest band, in
+# each mode, with banded trajectories (odd rbeg % 32, rows with movx > 0)
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
+@pytest.mark.parametrize("nw", [1, 2, 3, 32, 33, 64, 65, 512])
+def test_edit_kernel_band_widths(nw, mode, cuda_device):
+    rng = np.random.default_rng(7 * nw + mode)
+    bw = 32 * nw
+    tl = 120 if nw == 512 else 300
+    qs = [rng.integers(0, 4, 3 * bw + 40 + 17 * k).astype(np.uint8)
+          for k in range(2)]
+    ts = [rng.integers(0, 4, tl - 11 * k).astype(np.uint8) for k in range(2)]
+    g, ops = _edit_operands(qs, ts, mode, bw, True, cuda_device)
+    live = torch.arange(g.T, device=cuda_device).view(-1, 1) < ops.tlen
+    assert int(ops.movxs[live].max()) > 0
+    assert bool((ops.rbegs[live] % 2 == 1).any())
+    _assert_edit_same(g, ops)
+
+
+def test_edit_kernel_long_query_reads_device_memory(cuda_device):
+    """A query past 131,072 bases: its Eq planes (more than 64 KB) are read
+    from device memory instead of a shared-memory copy."""
+    rng = np.random.default_rng(77)
+    qs = [rng.integers(0, 4, 140000).astype(np.uint8)]
+    ts = [rng.integers(0, 4, 200).astype(np.uint8)]
+    g, ops = _edit_operands(qs, ts, MODE_GLOBAL, 64, True, cuda_device)
+    assert 16 * ops.qeq.shape[2] > 64 * 1024
+    _assert_edit_same(g, ops)
+
+
 def test_run_windows_cuda_matches_cpu(cuda_device):
     from bsalign_tpu_torch.ops import _cuda
     from bsalign_tpu_torch.poa import batch as PB

@@ -147,14 +147,33 @@ def test_plain_vs_pallas_interpret():
     _assert_same(jobs, outs, ref)
 
 
+def test_counts_layout_plain_vs_native_shared_window():
+    """The packed layout (bases, and the four counts of a position in one
+    word) on a batch whose jobs share a window's consensus side and sit at
+    other offsets than 0: the plain version equals bsa_pedit_forward."""
+    rng = np.random.default_rng(13)
+    a = _mk_job(rng, 90, 32)
+    jobs = [a, PE.PeditJob(a.seqs0.copy(), a.seqs1, a.mats0.copy(), a.mats1,
+                           90, 5, 70, 32, 16), _mk_job(rng, 61, 32), a]
+    pk = PE.pack_jobs(jobs, "cpu")
+    assert pk.cn.numel() == (90 + 32) + (61 + 32)   # two windows
+    outs = PE.pedit_forward_batch(jobs, device="cpu")
+    _assert_same(jobs, outs, [_native(j) for j in jobs])
+
+
 def test_pack_shares_window_planes():
     rng = np.random.default_rng(3)
     a = _mk_job(rng, 50, 32)
     b = PE.PeditJob(a.seqs0.copy(), a.seqs1, a.mats0.copy(), a.mats1, 50,
                     3, 40, 32, 16)
-    pk = PE.pack_jobs([a, b, _mk_job(rng, 70, 32)], "cpu")
+    c = _mk_job(rng, 70, 32)
+    pk = PE.pack_jobs([a, b, c], "cpu")
     pad = np.array([82, 82, 102])
-    assert pk.rd.numel() == 5 * pad.sum()
-    assert pk.cn.numel() == 5 * (82 + 102)
-    assert pk.jobs[:, PE.JOB_CN].tolist() == [0, 0, 5 * 82]
+    assert pk.rd.numel() == pad.sum() and pk.rdm.numel() == 4 * pad.sum()
+    assert pk.cn.numel() == 82 + 102 and pk.cnm.numel() == 4 * (82 + 102)
+    assert pk.jobs[:, PE.JOB_CN].tolist() == [0, 0, 82]
+    # counts interleaved by position, at 4 x the base planes' offsets
+    assert np.array_equal(pk.rdm[:4 * 82].view(82, 4).T.numpy(), a.mats0)
+    assert np.array_equal(pk.cnm[4 * 82:].view(102, 4).T.numpy(), c.mats1)
+    assert np.array_equal(pk.rd[2 * 82:].numpy(), c.seqs0)
     assert pk.total == 2 * (2 * 50 + 2) * 34 + (2 * 70 + 2) * 34
