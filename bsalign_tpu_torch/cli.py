@@ -1,12 +1,17 @@
-"""bsalign-tpu-torch command line: `align`, `edit` and `poa` (port of
-bsalign_tpu.cli).
+"""bsalign-tpu-torch command line: `align`, `edit`, `poa` and `cat` (port
+of bsalign_tpu.cli).
 
-Flags and output are those of `python -m bsalign_tpu.cli align`, `... edit`
-and `... poa`, byte for byte, plus `--device {cuda,cpu}`: `cuda` (the
-default) runs the DP in the hand-written CUDA kernels and raises when no
-CUDA device is present; `cpu` runs their plain PyTorch versions. Input
+Flags and output are those of `python -m bsalign_tpu.cli align`, `... edit`,
+`... poa` and `... cat`, byte for byte, plus `--device {cuda,cpu}`: `cuda`
+(the default) runs the DP in the hand-written CUDA kernels and raises when
+no CUDA device is present; `cpu` runs their plain PyTorch versions. Input
 pairs of `align` and `edit` are consecutive FASTA/Q records (q, t, q, t,
-...); `poa` takes one window's reads.
+...); `poa` takes one window's reads; `cat` joins pieces in file order.
+
+`align` and `edit` take `--dist` (or BSA_DIST=1): every process of a gloo
+process group (parallel/dist.py) runs a contiguous shard of the pairs on
+its own device, and process 0 prints the gathered output. BSA_PROFILE_DIR
+writes a torch.profiler trace of the run (utils/metrics.profile_trace).
 
 `align` runs every gap model on the device: 2-piece gap costs (-Q/-P)
 through the banded-8 kernel's planes emit and the host's backcal, and
@@ -68,6 +73,33 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def _shard(args, pairs):
+    """(dist_on, n_total, this process's pairs, its device): with --dist
+    or BSA_DIST, join the process group and keep this process's shard."""
+    from .parallel import dist
+    dist_on = args.dist or dist.enabled_by_env()
+    n_total = len(pairs)
+    if not dist_on:
+        return False, n_total, pairs, resolve_device(args.device)
+    dist.init()
+    device = resolve_device(args.device)
+    pairs = [pairs[i] for i in dist.process_shard(n_total)]
+    return True, n_total, pairs, dist.process_device(device.type)
+
+
+def _emit(dist_on: bool, n_total: int, texts: List[str]) -> None:
+    """Write the TSV blocks; with --dist, process 0 writes every process's
+    blocks in input order."""
+    if not dist_on:
+        sys.stdout.write("".join(texts))
+        return
+    from .parallel import dist
+    full = dist.distribute_texts(n_total, texts)
+    if full is not None:
+        sys.stdout.write("".join(full))
+    dist.shutdown()
+
+
 def main_align(argv):
     ap = argparse.ArgumentParser(prog="bsalign-tpu-torch align")
     ap.add_argument("-m", default="overlap", help="global/extend/overlap")
@@ -82,6 +114,8 @@ def main_align(argv):
     ap.add_argument("-R", type=int, default=1)
     ap.add_argument("-v", action="count", default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--dist", action="store_true",
+                    help="multi-process data parallel (torch.distributed)")
     ap.add_argument("inputs", nargs="+")
     args = ap.parse_args(argv)
     metrics.set_verbose(args.v)
@@ -89,11 +123,11 @@ def main_align(argv):
     if mname is None:
         sys.stderr.write("bad -m mode list\n")
         return 1
-    device = resolve_device(args.device)
     mode = MODE_NAMES[mname]
     mtx = B8.set_score_matrix(args.M, -args.X)
     gaps = (-args.O, -args.E, -args.Q, -args.P)
     pairs = _read_pairs(args.inputs)
+    dist_on, n_total, pairs, device = _shard(args, pairs)
 
     from .align.pairwise import align_batch
     # bucket by effective bandwidth (full-band pairs share a bucket only
@@ -110,10 +144,10 @@ def main_align(argv):
         for i, r in zip(idxs, outs):
             results[i] = r
 
-    sys.stdout.write("".join(
-        _fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg, args.L)
-        if rs.mat else ""
-        for (q, t), (rs, cg) in zip(pairs, results)))
+    _emit(dist_on, n_total,
+          [_fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg, args.L)
+           if rs.mat else ""
+           for (q, t), (rs, cg) in zip(pairs, results)])
     return 0
 
 
@@ -125,6 +159,8 @@ def main_edit(argv):
     ap.add_argument("-R", type=int, default=1)
     ap.add_argument("-v", action="count", default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--dist", action="store_true",
+                    help="multi-process data parallel (torch.distributed)")
     ap.add_argument("inputs", nargs="+")
     args = ap.parse_args(argv)
     metrics.set_verbose(args.v)
@@ -133,12 +169,12 @@ def main_edit(argv):
     if mode_name is None:
         sys.stderr.write("bad -m mode list\n")
         return 1
-    device = resolve_device(args.device)
     W = args.W
     if mode_name == "overlap" and W:
         sys.stderr.write(" ** disable band in bsalign-edit's overlap mode ** \n")
         W = 0
     pairs = _read_pairs(args.inputs)
+    dist_on, n_total, pairs, device = _shard(args, pairs)
 
     from .align.editdist import edit_batch, kmer_edit_batch
     qs = [p[0].codes for p in pairs]
@@ -147,32 +183,44 @@ def main_edit(argv):
         results = kmer_edit_batch(args.k, qs, ts, device=device)
     else:
         results = edit_batch(qs, ts, MODE_NAMES[mode_name], W, device=device)
-    sys.stdout.write("".join(
-        _fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg)
-        if rs.mat else ""
-        for (q, t), (rs, cg) in zip(pairs, results)))
+    _emit(dist_on, n_total,
+          [_fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg)
+           if rs.mat else ""
+           for (q, t), (rs, cg) in zip(pairs, results)])
     return 0
+
+
+def _device_arg(argv: List[str]) -> str:
+    """The value of --device in argv (its default, cuda, when absent)."""
+    for i, a in enumerate(argv):
+        if a == "--device" and i + 1 < len(argv):
+            return argv[i + 1]
+        if a.startswith("--device="):
+            return a.split("=", 1)[1]
+    return "cuda"
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         sys.stderr.write(
-            "Usage: bsalign-tpu-torch <align|edit|poa> [options] <fasta>\n")
+            "Usage: bsalign-tpu-torch <align|edit|poa|cat> [options] "
+            "<fasta>\n")
         return 1
     cmd = argv[0].lower()
-    if cmd in ("align", "edit"):
-        rc = (main_align if cmd == "align" else main_edit)(argv[1:])
-        if metrics.verbose():
-            metrics.report()
-        return rc
-    if cmd == "poa":
-        from .poa.cli import run_poa
-        return run_poa(argv[1:])
-    if cmd == "cat":
-        sys.stderr.write(f" -- '{cmd}' is not yet ported to "
-                         "bsalign_tpu_torch (use bsalign_tpu) --\n")
-        return 2
+    # BSA_PROFILE_DIR=<dir> captures a torch.profiler trace of the whole run
+    with metrics.profile_trace(_device_arg(argv[1:])):
+        if cmd in ("align", "edit"):
+            rc = (main_align if cmd == "align" else main_edit)(argv[1:])
+            if metrics.verbose():
+                metrics.report()
+            return rc
+        if cmd == "poa":
+            from .poa.cli import run_poa
+            return run_poa(argv[1:])
+        if cmd == "cat":
+            from .poa.cat import run_cat
+            return run_cat(argv[1:])
     sys.stderr.write(f" -- Unknown command '{cmd}' --\n")
     return 1
 

@@ -72,6 +72,8 @@ _SIGNATURES = {
     "bsa_g_cut_range": (_GFULL + [_L] * 5, _L),
     "bsa_g_cut_range_asc": (_GFULL + [_L] * 5, _L),
     "bsa_g_connect_range": (_GFULL + [_L] * 3, _L),
+    "bsa_g_connect": (_GFULL + [_L] * 2, _L),
+    "bsa_g_disconnect": (_GFULL + [_L] * 2, _L),
 }
 
 

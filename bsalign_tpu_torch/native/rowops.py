@@ -150,6 +150,17 @@ def g_merge_nodes(g, n1, n2):
                   "merge_nodes")
 
 
+def g_connect(g, u, v):
+    """Connect read nodes u -> v (bspoa.h connect_rdnode)."""
+    _check(rowops_lib().bsa_g_connect(*gfull_args(g), u, v), "connect")
+
+
+def g_disconnect(g, u, v):
+    """Disconnect read nodes u -> v (bspoa.h disconnect_rdnode)."""
+    _check(rowops_lib().bsa_g_disconnect(*gfull_args(g), u, v),
+           "disconnect")
+
+
 def g_cut_range(g, rid, lo, hi, cut):
     """cut_rdnode over positions hi-1..lo (descending)."""
     # worst-case edge growth per cut is bounded by local degree; size for

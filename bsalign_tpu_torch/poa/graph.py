@@ -86,6 +86,21 @@ class EdgeRef:
         return int(self.g._ed[ED_COV][self.idx])
 
 
+class _EdgesView:
+    """Lazy list of EdgeRef views over the edge slots."""
+
+    __slots__ = ("g",)
+
+    def __init__(self, g: "Graph"):
+        self.g = g
+
+    def __getitem__(self, idx: int) -> EdgeRef:
+        return EdgeRef(self.g, idx)
+
+    def __len__(self) -> int:
+        return self.g._elen
+
+
 class _NodesView:
     """Lazy list of Node views: nothing is stored per node."""
 
@@ -123,6 +138,7 @@ class Graph:
 
     def __init__(self):
         self.nodes = _NodesView(self)
+        self.edges = _EdgesView(self)
         self._nd = [np.zeros(_NODE_GROW, np.int32) for _ in range(25)]
         self._ed = [np.zeros(_EDGE_GROW, np.int32) for _ in range(4)]
         # estate: [0]=edge count (idx 0/1 reserved), [1]=recycle-stack size,
@@ -192,6 +208,28 @@ class Graph:
             return 0, 0
         self._encap_edges(4)
         return NR.g_chg_edge(self, _u, _v, cov)
+
+    def get_edge(self, _u: int, _v: int) -> int:
+        """The edge slot u -> v between the two rings' headers, else 0."""
+        nd = self._nd
+        ed = self._ed
+        v = nd[ND_HEADER][_v]
+        eidx = int(nd[ND_EDGE][nd[ND_HEADER][_u]])
+        while eidx:
+            if ed[ED_NODE][eidx] == v:
+                return eidx
+            eidx = int(ed[ED_NEXT][eidx])
+        return 0
+
+    def connect_rdnode(self, rid: int, pos: int) -> None:
+        """Link read rid's nodes pos-1 -> pos (connect_rdnode_bspoa)."""
+        self._encap_edges(4)
+        NR.g_connect(self, self.rdnode(rid, pos - 1), self.rdnode(rid, pos))
+
+    def disconnect_rdnode(self, rid: int, pos: int) -> None:
+        """Unlink read rid's nodes pos-1 -> pos (disconnect_rdnode_bspoa)."""
+        NR.g_disconnect(self, self.rdnode(rid, pos - 1),
+                        self.rdnode(rid, pos))
 
     def cut_rdnode(self, rid: int, pos: int, cut: int) -> int:
         """BSPOA_RDNODE_CUT{EDGE=1,NODE=2,ALL=3} (bspoa.h:741-795)."""

@@ -1,12 +1,14 @@
-"""Telemetry: cell-updates/s counters and leveled logging (port of
-bsalign_tpu.utils.metrics without its profiler hook).
+"""Telemetry: cell-updates/s counters, leveled logging and the profiler
+trace (port of bsalign_tpu.utils.metrics).
 
 The drivers report work through a process-wide registry under the same
 counter names as the JAX package: `banded8_fwd` (DP cells, launch to
 results on the host), `e2e_fetch` (bytes copied device to host),
 `e2e_traceback` (pairs walked) and `edit_fwd` (edit DP cells, sum of
-target lengths x band, operands to results on the host). Verbosity follows the CLI's repeated -v
-(BSA_VERBOSE overrides).
+target lengths x band, operands to results on the host). Verbosity
+follows the CLI's repeated -v (BSA_VERBOSE overrides). `profile_trace`
+writes a torch.profiler Chrome trace of a region when BSA_PROFILE_DIR is
+set.
 """
 from __future__ import annotations
 
@@ -64,6 +66,30 @@ def timed(kernel: str, cells: float):
         yield
     finally:
         add(kernel, cells, time.time() - t0)
+
+
+@contextmanager
+def profile_trace(device="cpu"):
+    """torch.profiler trace of the wrapped region when BSA_PROFILE_DIR is
+    set: a Chrome trace (host activity, and the kernels' timeline when
+    `device` is a CUDA device) written to
+    $BSA_PROFILE_DIR/trace-<pid>.json at the region's end; no-op
+    otherwise."""
+    d = os.environ.get("BSA_PROFILE_DIR")
+    if not d:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"trace-{os.getpid()}.json")
+    log(1, f"writing torch.profiler trace to {path}")
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(path)
 
 
 def counters() -> Dict[str, Counter]:

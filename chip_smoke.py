@@ -89,6 +89,35 @@ Phases, in order; any failure exits non-zero:
    its one-shot planes run. Prints each pass's time, the walk, pairs/s
    and the peak device memory of both runs.
 
+12. `cat`: a seeded contig of about 1 Mb cut into 250 windows of 5 kb
+   overlapping by 1,024 bp, each with 2% independent errors (what a
+   polisher's per-window consensus looks like); window 3 states half its
+   real overlap (the 4x retry), window 100 shares nothing with window 99
+   (fresh random bases in its place: 6 N inserted). `cat --device cuda`
+   joins them all; kernel A must launch at least once per join (each
+   launch timed with CUDA events), and the consensus must hold one run of
+   6 N and the expected length within 0.5%, less what the failed join
+   cuts (it cuts the consensus where its junk alignment starts, up to
+   4 x 1,024 bases, as the reference does). The first 8 windows must
+   print the same bytes with --device cuda and with --device cpu; the CPU
+   run (minutes of the plain forward at band 1,024) starts after phase 1
+   in a process of its own, one thread, beside the card's phases. Prints
+   joins/s, the kernel's ms per join and its share of the wall time.
+13. `--dist`: `align --dist` on 512 x 2 kb pairs (global, -W 128) and
+   `edit --dist` on 128 x 2 kb (global, -W 0), two processes on the one
+   card in a gloo group (bsalign_tpu_torch/parallel/loopback.py): the
+   gathered output must equal one process's byte for byte. Prints each
+   process's wall time and the gather's seconds.
+14. The batch split (parallel/mesh.py) over make_mesh() and over
+   [cuda:0] * 2: kernel A codes at phase 3's launch shape, B at phase 6's,
+   C on phase 7's round-1 jobs, each equal to the unsplit launch (edit:
+   rows below tlen), with the split's and the unsplit time; then
+   dryrun_multichip(device count).
+15. poa extras: merge_msas of 4 finished windows of one locus (10 reads
+   x 500 bp each) and remsa_lsps on 2 of them, on the card and on the
+   CPU: MSAs, merged consensus and re-POAed windows equal; the pedit
+   kernel launches at least once on the card.
+
 The cycle split (phases 3, 10 and 11, and --split): one launch with the
 kernel's optional per-phase clock64() counters on, against one with them
 off (outputs must be equal), printed as SM cycles per row below tlen,
@@ -220,6 +249,48 @@ def gen_poa_window(rng, nreads=20, reflen=800, err=0.12):
                 i += 1
         reads.append("".join("ACGT"[c] for c in out))
     return reads
+
+
+CAT_WINDOWS, CAT_WIN, CAT_OV = 250, 5000, 1024
+# the retry window, the window that shares nothing with the one before
+# it, and the windows the CPU checks (the first CAT_CPU)
+CAT_HALF, CAT_GAP, CAT_CPU = 3, 100, 8
+
+
+def gen_cat_windows(seed):
+    """Phase 12's input: a seeded contig of about 1 Mb cut into CAT_WINDOWS
+    windows of CAT_WIN bp overlapping by CAT_OV, each with 2% independent
+    errors (a third each substitutions, insertions, deletions), as FASTA
+    text. Window CAT_HALF states half its real overlap (overlap=512: the
+    4x retry); window CAT_GAP has fresh random bases where it would share
+    bases with the window before it (its last CAT_OV still overlap the
+    next window), so that join fails and 6 N are inserted: the window is
+    longer than 4 x CAT_OV, so the retry's alignment cannot reach its end.
+    Returns (fasta of all windows, fasta of the first CAT_CPU, the length
+    the consensus should have)."""
+    rng = np.random.default_rng(seed)
+    stride = CAT_WIN - CAT_OV
+    length = stride * (CAT_WINDOWS - 1) + CAT_WIN
+    ref = rng.integers(0, 4, length).astype(np.uint8)
+    recs = []
+    for k in range(CAT_WINDOWS):
+        lo = k * stride
+        hi = lo + CAT_WIN
+        s = ref[lo:hi]
+        if k == CAT_GAP:
+            s = np.concatenate([rng.integers(0, 4, stride).astype(np.uint8),
+                                s[stride:]])
+        r = rng.random(len(s))
+        ins = (r >= 0.02 / 3) & (r < 0.04 / 3)
+        base = np.where(r < 0.02 / 3, (s + rng.integers(1, 4, len(s))) & 3,
+                        s)
+        rep = np.where((r >= 0.04 / 3) & (r < 0.02), 0, 1 + ins)
+        out = np.repeat(base, rep)       # an inserted base before its own
+        out[(np.cumsum(rep) - rep)[ins]] = rng.integers(0, 4, int(ins.sum()))
+        desc = " overlap=512" if k == CAT_HALF else ""
+        seq = "".join("ACGT"[c] for c in out.tolist())
+        recs.append(f">w{k}{desc}\n{seq}\n")
+    return "".join(recs), "".join(recs[:CAT_CPU]), length + CAT_OV + 6
 
 
 def pedit_work(jobs):
@@ -426,6 +497,32 @@ def main() -> int:
     print(f"build: kernels {_cuda.build_seconds:.1f}s (nvcc sm_90a), "
           f"walker {native.build_seconds:.1f}s (g++)")
     stamp(1)
+
+    def start_cat_cpu():
+        """Phase 12's CPU reference, started now in a process of its own
+        (one thread, lowest priority) so that it runs beside the card's
+        phases: `cat --device cpu` on the first CAT_CPU windows, whose
+        plain forward takes minutes at band 1,024."""
+        tmp = tempfile.mkdtemp(prefix="bsa_cat_")
+        atexit.register(shutil.rmtree, tmp, True)
+        all_fa, first_fa, expect = gen_cat_windows(SEED + 120)
+        paths = [os.path.join(tmp, n) for n in ("all.fa", "first.fa")]
+        for path, text in zip(paths, (all_fa, first_fa)):
+            with open(path, "w") as f:
+                f.write(text)
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=HERE + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bsalign_tpu_torch", "cat", "--device",
+             "cpu", paths[1]], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, preexec_fn=lambda: os.nice(19))
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        return proc, paths, expect, time.time()
+
+    cat_cpu = None
+    if not sys.argv[1:]:
+        cat_cpu = start_cat_cpu()
 
     mtx = O.set_score_matrix(2, -6)
     smax, smin = int(mtx.max()), int(mtx.min())
@@ -703,7 +800,7 @@ def main() -> int:
         """The pedit kernel against its plain version (and the host's
         bsa_pedit_forward) on phase 7's cases and the main path's
         first round, timed. Returns (windows, err, ms, plain_ms, bound_ms,
-        bound_by)."""
+        bound_by, the main round's jobs)."""
         rng = np.random.default_rng(SEED + 30)
         windows = [gen_poa_window(rng) for _ in range(128)]
         t0 = time.time()
@@ -835,7 +932,7 @@ def main() -> int:
               f"{pedit_bound_by} ({pedit_bound_text})")
         stamp(7)
         return (windows, pedit_err, pedit_ms, pedit_plain_ms,
-                pedit_bound_ms, pedit_bound_by)
+                pedit_bound_ms, pedit_bound_by, main_jobs)
 
     if "--kernels" in sys.argv[1:]:
         # kernels B and C alone: phase 5, the edit kernel at its main-path
@@ -844,7 +941,7 @@ def main() -> int:
             e_err = phase5()
             qs, ts = gen_pairs(512, 2000, 0.10, SEED + 20)
             _, err, e_ms, e_plain, e_bound, e_by = edit_main_kernel(qs, ts)
-            _, p_err, p_ms, p_plain, p_bound, p_by = phase7()
+            _, p_err, p_ms, p_plain, p_bound, p_by, _ = phase7()
         except RuntimeError as e:
             return fail(str(e))
         print(f"kernel edit_rows, 256 pairs x 2 kb at NW 64: {e_ms:.4f} ms, "
@@ -1082,7 +1179,7 @@ def main() -> int:
     # ---- phase 7: the pedit kernel against its plain version ----
     try:
         windows, pedit_err, pedit_ms, pedit_plain_ms, pedit_bound_ms, \
-            pedit_bound_by = phase7()
+            pedit_bound_by, main_jobs = phase7()
     except RuntimeError as e:
         return fail(str(e))
 
@@ -1394,6 +1491,277 @@ def main() -> int:
                     "one-shot run")
     print("phase11 chunked planes == one-shot planes: 16 pairs")
     stamp(11)
+
+    # ---- phases 12-15: cat, --dist, the batch split, poa extras ----
+    import contextlib
+    import io
+    import re
+    from bsalign_tpu_torch.parallel import loopback
+    from bsalign_tpu_torch.parallel import mesh as MESH
+    from bsalign_tpu_torch.poa import extras as X
+
+    def cli_out(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = CLI.main(argv)
+        if rc != 0:
+            raise RuntimeError(f"{' '.join(argv[:3])} returned {rc}")
+        return buf.getvalue()
+
+    def phase12(cat_cpu):
+        """cat: the whole contig on the card, each launch of kernel A timed
+        with CUDA events; the first CAT_CPU windows against the CPU
+        process started after phase 1."""
+        if cat_cpu is None:
+            cat_cpu = start_cat_cpu()
+        proc, paths, expect, t_cpu0 = cat_cpu
+        events = []
+        rows = _cuda.banded8_rows
+
+        def timed_rows(g, st, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = rows(g, st, **kw)
+            e1.record()
+            events.append((e0, e1))
+            return out
+        torch.cuda.synchronize()
+        reset_counts()
+        _cuda.banded8_rows = timed_rows
+        try:
+            t0 = time.time()
+            out = cli_out(["cat", "--device", "cuda", paths[0]])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            _cuda.banded8_rows = rows
+        launches = _cuda.launches_codes + _cuda.launches_planes \
+            + _cuda.launches_none
+        joins = CAT_WINDOWS - 1
+        k_ms = sum(a.elapsed_time(b) for a, b in events)
+        seq = "".join(out.splitlines()[1:])
+        print(f"phase12 cat --device cuda: {CAT_WINDOWS} windows of "
+              f"{CAT_WIN} bp in {wall:.3f}s = "
+              f"{joins / wall:.2f} joins/s; kernel A {launches} launches, "
+              f"{k_ms:.1f} ms = {k_ms / joins:.3f} ms per join, "
+              f"{k_ms / 1e3 / wall * 100:.1f}% of the wall time; "
+              f"consensus {len(seq)} bp ({expect} expected, less what the "
+              f"failed join cuts)")
+        if launches < joins or _cuda.launches_codes != launches:
+            raise RuntimeError(f"phase 12: kernel A launched {launches} "
+                               f"times for {joins} joins")
+        # the failed join cuts the consensus where its junk alignment
+        # starts (the reference's behavior): up to 4 x CAT_OV bases less
+        tol = 0.005 * expect
+        if seq.count("NNNNNN") != 1 or seq.count("N") != 6 \
+                or not expect - 4 * CAT_OV - tol <= len(seq) <= expect + tol:
+            raise RuntimeError(f"phase 12: implausible consensus: "
+                               f"{len(seq)} bp, {seq.count('N')} N")
+        gpu8 = cli_out(["cat", "--device", "cuda", paths[1]])
+        t_wait = time.time()
+        try:
+            cpu8, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise RuntimeError("phase 12: the CPU cat outlived 900 s")
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 12: cat --device cpu returned "
+                               f"{proc.returncode}: {err[-500:]}")
+        if gpu8 != cpu8:
+            raise RuntimeError(f"phase 12: the first {CAT_CPU} windows "
+                               "differ between --device cuda and cpu")
+        print(f"phase12 first {CAT_CPU} windows (the retry among them): "
+              f"--device cuda == --device cpu "
+              f"({len(cpu8)} bytes; the CPU process ran "
+              f"{time.time() - t_cpu0:.1f}s beside the earlier phases, "
+              f"{time.time() - t_wait:.1f}s of it waited for here)")
+        stamp(12)
+
+    def phase13():
+        """--dist: two processes on the one card, gloo, against one."""
+        tmp = tempfile.mkdtemp(prefix="bsa_dist_")
+        atexit.register(shutil.rmtree, tmp, True)
+        for cmd, n, flags, seed in (
+                ("align", 512, ["-m", "global", "-W", "128"], SEED + 130),
+                ("edit", 128, ["-m", "global", "-W", "0"], SEED + 131)):
+            qs, ts = gen_pairs(n, 2000, 0.10, seed)
+            fa = os.path.join(tmp, f"{cmd}.fa")
+            with open(fa, "w") as f:
+                for i, (q, t) in enumerate(zip(qs, ts)):
+                    f.write(f">q{i}\n{''.join('ACGT'[b] for b in q)}\n"
+                            f">t{i}\n{''.join('ACGT'[b] for b in t)}\n")
+            single, got, info = loopback.run_loopback(
+                fa, cmd=cmd, nprocs=2, device="cuda", flags=flags + ["-v"],
+                timeout=300)
+            gathers, fwds = [], []
+            for err in info["stderr"]:
+                m = re.search(r"\[METRIC\] dist_gather .*?([\d.]+)s", err)
+                gathers.append(m.group(1) if m else "not read")
+                m = re.search(r"\[METRIC\] (banded8|edit)_fwd .*\((\d+) "
+                              r"calls\)", err)
+                fwds.append(m.group(2) if m else "not read")
+            print(f"phase13 {cmd} --dist, {n} pairs x 2 kb "
+                  f"{' '.join(flags)}, 2 processes on cuda:0: process walls "
+                  + ", ".join(f"{t:.2f}s" for t in info["dist_s"])
+                  + f" (start to exit), gather {', '.join(gathers)} s, "
+                  f"kernel forwards {', '.join(fwds)}; one process "
+                  f"{info['single_s']:.2f}s")
+            if got != single or got.count("\n") != 4 * n:
+                raise RuntimeError(f"phase 13: {cmd} --dist output differs "
+                                   "from the single process's")
+            print(f"phase13 {cmd} --dist == one process ({len(got)} bytes)")
+        stamp(13)
+
+    def phase14(main_jobs):
+        """The batch split over make_mesh() and over [cuda:0] * 2 against
+        the unsplit launch: kernel A codes at phase 3's launch shape, B at
+        phase 6's, C on phase 7's round-1 jobs; then the dryrun."""
+        meshes = [("make_mesh()", MESH.make_mesh()), ("[cuda:0] * 2",
+                                                      [dev, dev])]
+        print(f"phase14 devices: {torch.cuda.device_count()}")
+
+        def launched():
+            return (_cuda.launches_codes + _cuda.edit_launches
+                    + _cuda.pedit_launches)
+
+        def timed(fn):
+            """fn's result, its host-clock ms and its kernel launches (the
+            second of two calls)."""
+            fn()
+            torch.cuda.synchronize()
+            n0 = launched()
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.time() - t0) * 1e3, launched() - n0
+
+        qs, ts = gen_pairs(512, 2000, 0.10, SEED)
+        qs, ts = qs[:P.DEVICE_CHUNK], ts[:P.DEVICE_CHUNK]
+        gaps = (-3, -2, 0, 0)
+        pw = O.get_piecewise(*gaps, 128)
+        qpad, qlens, tpad, tlens, rby, T = P._pack_batch(qs, ts, 128)
+        us, es, qs0, ub, _ = P._init_state(MODE_GLOBAL, 128, pw, smax, smin,
+                                           *gaps, len(qs))
+        args = (qpad, qlens, tpad, tlens, P._mtx5(mtx), rby, us, es, qs0,
+                ub)
+        geo = (T, 8, MODE_GLOBAL, pw, *gaps, smax, smin)
+        want, t_one, _ = timed(lambda: K.make_forward(
+            *geo, codes=True, device=dev)(*args))
+        for label, mesh in meshes:
+            got, t_split, n = timed(lambda: MESH.make_sharded_forward(
+                *geo, mesh, codes=True)(*args))
+            for f in K.ForwardResult._fields:
+                a, b = getattr(got, f), getattr(want, f)
+                if f == "planes":
+                    a, b = [x for x in a if x is not None], \
+                        [x for x in b if x is not None]
+                elif not isinstance(a, list):
+                    a, b = [a], [b]
+                if len(a) != len(b) or not all(
+                        torch.equal(x, y) for x, y in zip(a, b)):
+                    raise RuntimeError(f"phase 14 banded-8 over {label}: "
+                                       f"{f} differs from the unsplit run")
+            print(f"phase14 banded-8 codes {len(qs)} x 2 kb over {label}: "
+                  f"== unsplit; {n} launches; split {t_split:.2f} ms, unsplit "
+                  f"{t_one:.2f} ms (host clock, operands to results)")
+
+        qs6, ts6 = gen_pairs(512, 2000, 0.10, SEED + 20)   # phase 6's
+        main_idx = [i for i, q in enumerate(qs6) if roundup(roundup(
+            len(q), 64), 256) == 2048][:D.DEVICE_CHUNK]
+        T6, NWQ, ops = D._pack_bucket([qs6[i] for i in main_idx],
+                                      [ts6[i] for i in main_idx], 2048, False)
+        want, t_one, _ = timed(lambda: KE.make_edit_forward(
+            T6, 64, MODE_GLOBAL, NWQ, False, device=dev)(*ops))
+        tl = ops[3]
+        for label, mesh in meshes:
+            got, t_split, n = timed(lambda: MESH.make_sharded_edit_forward(
+                T6, 64, MODE_GLOBAL, NWQ, False, mesh)(*ops))
+            same = all(np.array_equal(getattr(got, f), getattr(want, f))
+                       for f in ("smin", "ry", "final_score", "final_sbeg"))
+            for f in ("pm", "pp", "sbeg"):   # rows past tlen are unwritten
+                a, b = getattr(got, f), getattr(want, f)
+                same &= all(np.array_equal(a[:tl[j], ..., j],
+                                           b[:tl[j], ..., j])
+                            for j in range(len(tl)))
+            if not same:
+                raise RuntimeError(f"phase 14 edit over {label}: differs "
+                                   "from the unsplit run")
+            print(f"phase14 edit {len(tl)} x 2 kb NW 64 over {label}: "
+                  f"== unsplit; {n} launches; split {t_split:.2f} ms, unsplit "
+                  f"{t_one:.2f} ms")
+
+        want, t_one, _ = timed(lambda: PE.pedit_forward_batch(main_jobs,
+                                                              device=dev))
+        for label, mesh in meshes:
+            got, t_split, n = timed(lambda: MESH.sharded_pedit_forward(
+                main_jobs, mesh))
+            if len(got) != len(want) or not all(
+                    np.array_equal(a0, b0) and np.array_equal(a1, b1)
+                    for (a0, a1), (b0, b1) in zip(got, want)):
+                raise RuntimeError(f"phase 14 pedit over {label}: differs "
+                                   "from the unsplit run")
+            print(f"phase14 pedit {len(main_jobs)} jobs over {label}: "
+                  f"== unsplit; {n} launches; split {t_split:.2f} ms, unsplit "
+                  f"{t_one:.2f} ms")
+        MESH.dryrun_multichip(torch.cuda.device_count())
+        print(f"phase14 dryrun_multichip({torch.cuda.device_count()}) passed")
+        stamp(14)
+
+    def phase15():
+        """poa extras on the card and on the CPU: merge_msas of 4 finished
+        windows of one locus, remsa_lsps on 2 of them."""
+        rng = np.random.default_rng(SEED + 150)
+        reads = gen_poa_window(rng, nreads=40, reflen=500)
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            reset_counts()
+            t0 = time.time()
+            wins = []
+            for k in range(4):
+                g = BSPOA(BSPOAPar(), device=d)
+                g.beg()
+                for s in reads[10 * k:10 * k + 10]:
+                    g.push(s)
+                g.end()
+                wins.append(g)
+            mats = []
+            for g in wins:
+                order = np.asarray(g.msaidxs, np.int64)
+                mats.append((np.asarray(g.msacols)[order].copy(), g.nrds))
+            dg = X.merge_msas(BSPOAPar(), mats, device=d)
+            out = [m.tobytes() for m, _ in mats]
+            out += [bytes(dg.cns), np.asarray(dg.msacols)[
+                np.asarray(dg.msaidxs, np.int64)].tobytes()]
+            for g in wins[:2]:
+                n = X.remsa_lsps(g, g.par)
+                out += [n, bytes(g.cns), bytes(g.qlt)]
+            res[d.type] = out
+            print(f"phase15 {d.type}: 4 windows, merge_msas ({dg.nrds} "
+                  f"reads, consensus {len(dg.cns)} bp) and remsa_lsps on 2 "
+                  f"({out[-6]} and {out[-3]} windows re-POAed) in "
+                  f"{time.time() - t0:.2f}s, pedit launches "
+                  f"{_cuda.pedit_launches}")
+            if d.type == "cuda" and _cuda.pedit_launches < 1:
+                raise RuntimeError("phase 15: the pedit kernel never "
+                                   "launched on the card")
+            if not 450 <= len(dg.cns) <= 550:
+                raise RuntimeError(f"phase 15: implausible merged "
+                                   f"consensus of {len(dg.cns)} bp")
+        if res["cuda"] != res["cpu"]:
+            raise RuntimeError("phase 15: extras differ between the card "
+                               "and the CPU")
+        print("phase15 MSAs, merged MSA and consensus, LSP re-POAs: card "
+              "== CPU")
+        stamp(15)
+
+    try:
+        phase12(cat_cpu)
+        phase13()
+        phase14(main_jobs)
+        phase15()
+    except RuntimeError as e:
+        return fail(str(e))
 
     err = ptxas_check(ptxas_wait)
     if err:

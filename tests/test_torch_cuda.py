@@ -497,3 +497,81 @@ def test_run_windows_cuda_matches_cpu(cuda_device):
         assert np.array_equal(a.qlt, b.qlt)
         assert np.array_equal(a.alt, b.alt)
         assert a.snvs == b.snvs and a.msa == b.msa
+
+
+def test_cat_cuda_matches_cpu(cuda_device, tmp_path):
+    """`cat` on the card and on the CPU print the same bytes, one banded-8
+    launch per join at least (a retry and a 6 N join among them)."""
+    import contextlib
+    import io
+    from bsalign_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(81)
+    ref = rng.integers(0, 4, 900)
+    spans = [(0, 300), (200, 500), (400, 700), (760, 900)]
+    text = "".join(f">w{k}{' overlap=50' if k == 1 else ''}\n"
+                   + "".join("ACGT"[b] for b in ref[lo:hi]) + "\n"
+                   for k, (lo, hi) in enumerate(spans))
+    fa = tmp_path / "w.fa"
+    fa.write_text(text)
+    outs = []
+    for d in ("cuda", "cpu"):
+        before = _cuda.launches_codes
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert CLI.main(["cat", "--device", d, "-W", "100",
+                             str(fa)]) == 0
+        outs.append(buf.getvalue())
+        if d == "cuda":
+            assert _cuda.launches_codes - before >= len(spans) - 1
+    assert outs[0] == outs[1] and "NNNNNN" in outs[0]
+
+
+def test_sharded_forwards_on_one_card(cuda_device):
+    """The batch split over [cuda:0] * 2 (an odd batch) against the
+    unsplit launch: kernel A codes, B (rows below tlen), C."""
+    from bsalign_tpu_torch.align import editdist as D
+    from bsalign_tpu_torch.ops import edit as KE
+    from bsalign_tpu_torch.ops import pedit as PE
+    from bsalign_tpu_torch.parallel import mesh as M
+    from bsalign_tpu_torch.poa.core import BSPOA, BSPOAPar
+    qs, ts = _pairs((90, 160, 220, 130, 200), 0.12, 21)
+    pw, T, args = _operands(qs, ts, MODE_GLOBAL, AFFINE, 2)
+    geo = (T, 2, MODE_GLOBAL, pw, *AFFINE, NT_MAX, NT_MIN)
+    mesh = [cuda_device] * 2
+    got = M.make_sharded_forward(*geo, mesh, codes=True)(*args)
+    want = K.make_forward(*geo, codes=True, device=cuda_device)(*args)
+    for a, b in zip(got, want):
+        for x, y in (zip(a, b) if isinstance(a, (list, tuple))
+                     else [(a, b)]):
+            assert (x is None and y is None) or torch.equal(x, y)
+    Te, NWQ, ops = D._pack_bucket(qs, ts, 256, False)
+    ge = M.make_sharded_edit_forward(Te, 8, MODE_GLOBAL, NWQ, False,
+                                     mesh)(*ops)
+    we = KE.make_edit_forward(Te, 8, MODE_GLOBAL, NWQ, False,
+                              device=cuda_device)(*ops)
+    for j, tl in enumerate(ops[3]):
+        for f in ("pm", "pp", "sbeg"):
+            assert np.array_equal(getattr(ge, f)[:tl, ..., j],
+                                  getattr(we, f)[:tl, ..., j])
+    for f in ("smin", "ry", "final_score", "final_sbeg"):
+        assert np.array_equal(getattr(ge, f), getattr(we, f))
+    rng = np.random.default_rng(22)
+    jobs = []
+    for _ in range(3):
+        r = rng.integers(0, 4, 200)
+        g = BSPOA(BSPOAPar(), device="cpu")
+        g.beg()
+        for _ in range(5):
+            keep = rng.random(200) > 0.08
+            g.push("".join("ACGT"[b] for b in r[keep]))
+        assert g.end_begin()
+        g.msa()
+        g.cns_call()
+        jobs += g._remsa_dev_build(g._remsa_prepare(g.par.editbw // 2, 1),
+                                   1)[0]
+    gp = M.sharded_pedit_forward(jobs, [cuda_device] * 3)
+    wp = PE.pedit_forward_batch(jobs, device=cuda_device)
+    assert len(gp) == len(wp) == len(jobs)
+    for (a0, a1), (b0, b1) in zip(gp, wp):
+        assert np.array_equal(a0, b0) and np.array_equal(a1, b1)
+    M.dryrun_multichip(torch.cuda.device_count())
