@@ -6,7 +6,8 @@ precomputed on host; the device runs the Myers-form bit-plane rows for a
 whole batch and stores the u-planes per row; the host decodes CIGARs with the
 reference's tie-break priority (match > I > D > mismatch). On a CUDA device
 the forward is the hand-written kernel (csrc/edit.cu); on the CPU it is the
-plain PyTorch version. Chunks of DEVICE_CHUNK pairs run one after another.
+plain PyTorch version. Chunks of DEVICE_CHUNK pairs run one after another,
+each cut into launches whose planes stay within LAUNCH_BYTES.
 
 The kmer-guided mode chains unique kmer anchors on host (oracle logic) and
 batch-aligns all inter-anchor segments on device, grouped by bandwidth.
@@ -27,6 +28,15 @@ from ..utils import metrics
 
 MAX_B4 = OE.MAX_B4
 DEVICE_CHUNK = 256
+# bytes of one launch's per-row outputs (pm and pp, 8 bytes a word, and
+# sbeg), which the host copies whole: a launch holds about twice this
+LAUNCH_BYTES = 2 << 30
+
+
+def _launch_pairs(T: int, NW: int) -> int:
+    """Pairs per launch of T rows at NW words within LAUNCH_BYTES, one at
+    least."""
+    return max(1, LAUNCH_BYTES // (max(T, 1) * (8 * NW + 4)))
 
 
 def _band_trajectory(qlen: int, tlen: int, bandwidth: int, banded: bool,
@@ -172,11 +182,15 @@ def edit_batch(qseqs: Sequence[np.ndarray], tseqs: Sequence[np.ndarray],
         bw, banded = key
         for c in range(0, len(idxs), DEVICE_CHUNK):
             chunk = idxs[c:c + DEVICE_CHUNK]
-            outs = _edit_bucket([qseqs[i] for i in chunk],
-                                [tseqs[i] for i in chunk], mode, bw, banded,
-                                device)
-            for i, r in zip(chunk, outs):
-                results[i] = r
+            T = roundup(max(len(tseqs[i]) for i in chunk), 128)
+            per = _launch_pairs(T, bw // 32)
+            for g in range(0, len(chunk), per):
+                part = chunk[g:g + per]
+                outs = _edit_bucket([qseqs[i] for i in part],
+                                    [tseqs[i] for i in part], mode, bw,
+                                    banded, device)
+                for i, r in zip(part, outs):
+                    results[i] = r
     return results
 
 

@@ -17,6 +17,12 @@ length T (rows, rounded up to 128):
   forward keeps each chunk's entry state, then the chunks are re-run in
   reverse order emitting codes, and the resumable walker consumes each
   chunk while the device re-runs the one before it.
+
+Each launch's per-row outputs, with what the driver holds of them, stay
+within LAUNCH_BYTES (`_launch_plan`): a batch whose pairs need more runs
+in groups of fewer pairs, one group after another, and the two-pass mode
+first takes fewer rows per chunk. Pairs are independent and chunks resume
+exactly, so the results are those of one launch.
 """
 from __future__ import annotations
 
@@ -85,6 +91,41 @@ T_CHUNK = 4096      # rows per device call for long targets (bounds the
                     # device memory held by per-row outputs)
 REALIGN_T = 16384   # beyond this many rows, score first and re-forward row
                     # chunks on demand for the traceback (two-pass mode)
+# bytes of one launch's per-row outputs that the driver holds at once: on
+# the device, then again on the host (the pinned copy, or the joined row
+# chunks), so a launch holds about twice this
+LAUNCH_BYTES = 2 << 30
+
+
+def _launch_plan(B: int, T: int, W: int, piecewise: int, use_codes: bool):
+    """(pairs per launch, rows per chunk) for B pairs of T rows at W
+    stripes, so that what a launch holds stays within LAUNCH_BYTES, one
+    pair at least:
+    - codes (0.5 bytes a cell) of every row, which the walk reads whole
+      (T <= REALIGN_T);
+    - planes ((piecewise + 1) bytes a cell, anchors, begs) of every row,
+      which backcal holds;
+    - two-pass (T > REALIGN_T): the codes of one chunk of rows and the
+      entry state of every chunk; the chunk is halved (down to 128 rows)
+      while the pairs do not fit one launch and a shorter chunk holds less,
+      and then the pairs are cut."""
+    BW = W * WS
+    codes_row = (-(-W // 8) * WS + 1) * 4           # codes and begs
+    if not use_codes:
+        row = (piecewise + 1) * BW + (WS + 2) * 4   # planes, anchors, begs
+        return max(1, min(B, LAUNCH_BYTES // (max(T, 1) * row))), T_CHUNK
+    if T <= REALIGN_T:
+        return max(1, min(B, LAUNCH_BYTES // (max(T, 1) * codes_row))), \
+            T_CHUNK
+    state = ((piecewise + 1) * BW + WS + 1 + 8) * 4  # planes, anchors, reg
+
+    def per_pair(tc):
+        return tc * codes_row + -(-T // tc) * state
+    Tc = T_CHUNK
+    while Tc > 128 and B * per_pair(Tc) > LAUNCH_BYTES \
+            and per_pair(Tc // 2) < per_pair(Tc):
+        Tc //= 2
+    return max(1, min(B, LAUNCH_BYTES // per_pair(Tc))), Tc
 
 
 def _forward_chunked(T, W, mode, piecewise, gapo1, gape1, gapo2, gape2,
@@ -149,11 +190,31 @@ def align_batch(qseqs: Sequence[np.ndarray], tseqs: Sequence[np.ndarray],
 def _launch_batch(qseqs, tseqs, mode, bandwidth, mtx, gapo1, gape1, gapo2,
                   gape2, device):
     """Launch the device forward for one batch and return a zero-arg
-    finisher that fetches results and runs the host traceback."""
+    finisher that fetches results and runs the host traceback. A batch
+    past LAUNCH_BYTES runs in groups of pairs, each launched, fetched and
+    walked before the next, all in the finisher."""
     B = len(qseqs)
     if bandwidth == 0:
         bandwidth = max(len(q) for q in qseqs)
     bandwidth = roundup(bandwidth, WS)
+    W = bandwidth // WS
+    piecewise = O.get_piecewise(gapo1, gape1, gapo2, gape2, bandwidth)
+    T = roundup(max(len(t) for t in tseqs), 128)
+    per, Tc = _launch_plan(B, T, W, piecewise, piecewise < 2)
+    if per < B:
+        return lambda: [r for c in range(0, B, per) for r in _launch_group(
+            qseqs[c:c + per], tseqs[c:c + per], mode, bandwidth, mtx, gapo1,
+            gape1, gapo2, gape2, Tc, device)()]
+    return _launch_group(qseqs, tseqs, mode, bandwidth, mtx, gapo1, gape1,
+                         gapo2, gape2, Tc, device)
+
+
+def _launch_group(qseqs, tseqs, mode, bandwidth, mtx, gapo1, gape1, gapo2,
+                  gape2, Tc, device):
+    """Launch the device forward for pairs that share one band (rounded to
+    WS) and return their finisher; long targets run in chunks of Tc
+    rows."""
+    B = len(qseqs)
     W = bandwidth // WS
     piecewise = O.get_piecewise(gapo1, gape1, gapo2, gape2, bandwidth)
     smax = int(mtx.max())
@@ -172,10 +233,10 @@ def _launch_batch(qseqs, tseqs, mode, bandwidth, mtx, gapo1, gape1, gapo2,
         if use_codes and T > REALIGN_T:
             return lambda: _twopass_batch(
                 T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
-                gape2, smax, smin, qseqs, tseqs, fwd_args, T_CHUNK,
-                fwd_cells, t_launch, device)
+                gape2, smax, smin, qseqs, tseqs, fwd_args, Tc, fwd_cells,
+                t_launch, device)
         res0 = _forward_chunked(T, W, mode, piecewise, gapo1, gape1, gapo2,
-                                gape2, smax, smin, *fwd_args, Tc=T_CHUNK,
+                                gape2, smax, smin, *fwd_args, Tc=Tc,
                                 codes=use_codes, device=device)
         get_res = lambda: res0                               # noqa: E731
     else:

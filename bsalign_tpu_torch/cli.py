@@ -16,10 +16,14 @@ writes a torch.profiler trace of the run (utils/metrics.profile_trace).
 `align` runs every gap model on the device: 2-piece gap costs (-Q/-P)
 through the banded-8 kernel's planes emit and the host's backcal, and
 targets longer than 4,096 rows in resumable row chunks (past 16,384 rows,
-a scores-only pass and then codes re-forwarded chunk by chunk). On the
-card, a band wider than the kernel's shared memory holds raises
-NotImplementedError: above about 58,000 at linear, 29,000 at affine and
-19,000 at 2-piece gaps, which `-W 0` reaches on long reads.
+a scores-only pass and then codes re-forwarded chunk by chunk). Any band
+runs: past the kernel's shared memory its planes live in device memory,
+and a batch whose per-row outputs pass the driver's LAUNCH_BYTES runs in
+groups of pairs; past the card's memory, allocation fails.
+
+USE_DEVICE = False (a debug constant) runs the scalar engines instead:
+`align` the numpy oracle (oracle/banded8.pairwise), `edit` the host
+C++ (oracle/edit.edit_pairwise / kmer_edit_pairwise), one pair at a time.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from . import seqs as S
 from .constants import MODE_NAMES, parse_mode_list, roundup
 from .oracle import banded8 as B8
 from .utils import metrics
+
+USE_DEVICE = True  # flip off to run the scalar oracle engines (debug)
 
 
 def _fmt_pairwise(qtag, ttag, qseq, tseq, rs, cigars, line=0):
@@ -129,20 +135,27 @@ def main_align(argv):
     pairs = _read_pairs(args.inputs)
     dist_on, n_total, pairs, device = _shard(args, pairs)
 
-    from .align.pairwise import align_batch
-    # bucket by effective bandwidth (full-band pairs share a bucket only
-    # when their rounded qlen matches the reference's per-pair band)
-    buckets = {}
-    for idx, (q, t) in enumerate(pairs):
-        bw = args.W if args.W > 0 else roundup(len(q.seq), 128)
-        buckets.setdefault(bw, []).append(idx)
-    results = [None] * len(pairs)
-    for bw, idxs in buckets.items():
-        qs = [pairs[i][0].codes for i in idxs]
-        ts = [pairs[i][1].codes for i in idxs]
-        outs = align_batch(qs, ts, mode, bw, mtx, *gaps, device=device)
-        for i, r in zip(idxs, outs):
-            results[i] = r
+    if USE_DEVICE:
+        from .align.pairwise import align_batch
+        # bucket by effective bandwidth (full-band pairs share a bucket only
+        # when their rounded qlen matches the reference's per-pair band)
+        buckets = {}
+        for idx, (q, t) in enumerate(pairs):
+            bw = args.W if args.W > 0 else roundup(len(q.seq), 128)
+            buckets.setdefault(bw, []).append(idx)
+        results = [None] * len(pairs)
+        for bw, idxs in buckets.items():
+            qs = [pairs[i][0].codes for i in idxs]
+            ts = [pairs[i][1].codes for i in idxs]
+            outs = align_batch(qs, ts, mode, bw, mtx, *gaps, device=device)
+            for i, r in zip(idxs, outs):
+                results[i] = r
+    else:
+        results = []
+        for (q, t) in pairs:
+            bw = args.W if args.W > 0 else roundup(len(q.seq), 128)
+            results.append(B8.pairwise(q.codes, t.codes, mode, bw, mtx,
+                                       *gaps))
 
     _emit(dist_on, n_total,
           [_fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg, args.L)
@@ -176,13 +189,24 @@ def main_edit(argv):
     pairs = _read_pairs(args.inputs)
     dist_on, n_total, pairs, device = _shard(args, pairs)
 
-    from .align.editdist import edit_batch, kmer_edit_batch
-    qs = [p[0].codes for p in pairs]
-    ts = [p[1].codes for p in pairs]
-    if mode_name == "kmer":
-        results = kmer_edit_batch(args.k, qs, ts, device=device)
+    if USE_DEVICE:
+        from .align.editdist import edit_batch, kmer_edit_batch
+        qs = [p[0].codes for p in pairs]
+        ts = [p[1].codes for p in pairs]
+        if mode_name == "kmer":
+            results = kmer_edit_batch(args.k, qs, ts, device=device)
+        else:
+            results = edit_batch(qs, ts, MODE_NAMES[mode_name], W,
+                                 device=device)
     else:
-        results = edit_batch(qs, ts, MODE_NAMES[mode_name], W, device=device)
+        from .oracle import edit as E
+        results = []
+        for (q, t) in pairs:
+            if mode_name == "kmer":
+                results.append(E.kmer_edit_pairwise(args.k, q.codes, t.codes))
+            else:
+                results.append(E.edit_pairwise(q.codes, t.codes,
+                                               MODE_NAMES[mode_name], W))
     _emit(dist_on, n_total,
           [_fmt_pairwise(q.tag, t.tag, q.codes, t.codes, rs, cg)
            if rs.mat else ""

@@ -46,6 +46,9 @@ SCORE_EPI8_MIN = -(0x7F >> 1)  # -63
 SCORE_EPI8_MAX = 0x7F >> 1  # 63
 SCORE_MIN = -(0x7FFFFFFF >> 2)
 
+# packed CIGAR ops (bsalign.h:401-417): M I D N S H P = X
+CIGAR_CHARS = "MIDNSHP=X*"
+
 # The reference's striped-SIMD geometry (SSE build: 16 int8 lanes).
 # Band layout, per-stripe score anchors and the adaptive-band heuristics all
 # depend on this constant; we pin it to the reference's default build so that

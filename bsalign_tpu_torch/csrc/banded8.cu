@@ -56,6 +56,13 @@
 // >= 1 and q for piecewise 2), double-buffered, each lane's W stripes padded
 // to an odd number of 8-byte words (no bank conflicts). Two pairs share a
 // warp and a block by default, so a launch of 256 pairs spreads over 128 SMs.
+// A band whose planes do not fit the block's 227 KB of shared memory (past
+// 57,984 / 29,056 / 19,328 at piecewise 0 / 1 / 2) keeps the same planes,
+// in the same layout, in a scratch of device memory that the launcher
+// allocates, 2 x BUF bytes per pair slot (the GS template flag): the row
+// step is the same code reading and writing through another pointer. Each
+// pair's scratch is its own warp's alone, so its reads after a write are
+// ordered by the same __syncwarp, and a row's few hundred KB stay in L2.
 //
 // Layouts (batch-minor as in the JAX package; int32 unless stated):
 //   qb uint8 [B, QPU] (query codes; 4 past the query scores MIN8),
@@ -101,6 +108,7 @@ struct Params {
     int8_t *us_o, *es_o, *qs_o;
     int *ubegs, *begs, *fin_us, *fin_es, *fin_qs, *fin_ub, *fin_reg;
     long long *cycles;   // [NPHASE, B] cycle split, or null
+    int8_t *gs;          // GS: the planes' scratch, 2 * BUF bytes per slot
     int B, QPU, T, row0, W, gapo1, gape1, gapo2, gape2, d_oh, c_oh, ppb;
 };
 
@@ -241,8 +249,9 @@ __device__ __forceinline__ void fpen(int (&f)[N], const int *ubv,
 }
 
 // PW: piecewise 0/1/2; MT: mode type 0 global, 1 overlap, 2 extend;
-// EMIT: EMIT_CODES (PW < 2), EMIT_PLANES or EMIT_NONE.
-template <int PW, int MT, int EMIT>
+// EMIT: EMIT_CODES (PW < 2), EMIT_PLANES or EMIT_NONE; GS: the planes in
+// device memory (p.gs) instead of shared memory.
+template <int PW, int MT, int EMIT, bool GS>
 __global__ void banded8_rows_kernel(const Params p) {
     static_assert(EMIT != EMIT_CODES || PW < 2, "codes cover piecewise 0/1");
     constexpr bool GLOBAL = MT == 0, OVERLAP = MT == 1;
@@ -285,8 +294,10 @@ __global__ void banded8_rows_kernel(const Params p) {
     }
 
     // the pair's two buffers: cell (x, lane j) of plane k in buffer c lies
-    // at sp + c * BUF + k * PL + j * WP + x
-    int8_t *const sp = smem + (size_t)half * 2 * BUF;
+    // at sp + c * BUF + k * PL + j * WP + x (GS: in the scratch slot of the
+    // block's pair `half`, a missing pair's slot too)
+    int8_t *const sp = GS ? p.gs + (size_t)(blockIdx.x * p.ppb + half) * 2 * BUF
+                          : smem + (size_t)half * 2 * BUF;
     for (int x = 0; x < NG * G; ++x) {
         const size_t k = ((size_t)x * WS + j) * B + b;
         int8_t *c = sp + j * WP + x;
@@ -814,13 +825,14 @@ __global__ void banded8_rows_kernel(const Params p) {
     }
 }
 
-template <int PW, int MT, int EMIT>
+template <int PW, int MT, int EMIT, bool GS>
 cudaError_t launch(const Params &p, cudaStream_t stream) {
     // ppb pairs of two buffers of PW + 1 planes, each of 16 lanes padded to
-    // an odd number of 8-byte words
+    // an odd number of 8-byte words; none with the planes in device memory
     const int NG = (p.W + G - 1) / G;
-    const size_t smem = (size_t)p.ppb * 2 * (PW + 1) * WS * G * (NG | 1);
-    auto kern = banded8_rows_kernel<PW, MT, EMIT>;
+    const size_t smem =
+        GS ? 0 : (size_t)p.ppb * 2 * (PW + 1) * WS * G * (NG | 1);
+    auto kern = banded8_rows_kernel<PW, MT, EMIT, GS>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -832,12 +844,18 @@ cudaError_t launch(const Params &p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+template <int PW, int MT, int EMIT>
+cudaError_t launch_store(const Params &p, cudaStream_t s) {
+    if (p.gs) return launch<PW, MT, EMIT, true>(p, s);
+    return launch<PW, MT, EMIT, false>(p, s);
+}
+
 template <int PW, int MT>
 cudaError_t launch_emit(const Params &p, int emit, cudaStream_t s) {
-    if (emit == EMIT_PLANES) return launch<PW, MT, EMIT_PLANES>(p, s);
-    if (emit == EMIT_NONE) return launch<PW, MT, EMIT_NONE>(p, s);
+    if (emit == EMIT_PLANES) return launch_store<PW, MT, EMIT_PLANES>(p, s);
+    if (emit == EMIT_NONE) return launch_store<PW, MT, EMIT_NONE>(p, s);
     if constexpr (PW < 2) {
-        if (emit == EMIT_CODES) return launch<PW, MT, EMIT_CODES>(p, s);
+        if (emit == EMIT_CODES) return launch_store<PW, MT, EMIT_CODES>(p, s);
     }
     return cudaErrorInvalidValue;
 }
@@ -855,16 +873,19 @@ cudaError_t launch_mode(const Params &p, int mt, int emit, cudaStream_t s) {
 // 1 planes, 2 none. qb is the uint8 [B, QPU] query (QPU a multiple of 4
 // that reaches 12 bytes past the last band window). Outputs a call does not
 // write may be null; cycles, when not null, receives the int64 [7, B] cycle
-// split of each pair. Returns cudaGetLastError() (cudaErrorInvalidValue for
-// an unknown combination).
+// split of each pair. gs, when not null, is the planes' scratch in device
+// memory (2 x (piecewise + 1) x 16 x 8 x (ceil(W / 8) | 1) bytes for each
+// of the launch's pair slots, B rounded up to pairs_per_block), and the
+// launch takes no shared memory. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unknown combination).
 extern "C" int bsa_banded8_rows(
     const void *qb, const void *tseq, const void *qlen, const void *tlen,
     const void *rbz, const void *rby, const void *mtx5, const void *init_us,
     const void *init_es, const void *init_qs, const void *init_ub,
     const void *init_reg, void *codes, void *us_o, void *es_o, void *qs_o,
     void *ubegs, void *begs, void *fin_us, void *fin_es, void *fin_qs,
-    void *fin_ub, void *fin_reg, void *cycles, int B, int QPU, int T,
-    int row0, int W,
+    void *fin_ub, void *fin_reg, void *cycles, void *gs, int B, int QPU,
+    int T, int row0, int W,
     int mode_type, int piecewise, int emit, int gapo1, int gape1, int gapo2,
     int gape2, int d_oh, int c_oh, int pairs_per_block, void *stream) {
     Params p;
@@ -882,6 +903,7 @@ extern "C" int bsa_banded8_rows(
     p.fin_qs = (int *)fin_qs; p.fin_ub = (int *)fin_ub;
     p.fin_reg = (int *)fin_reg;
     p.cycles = (long long *)cycles;
+    p.gs = (int8_t *)gs;
     p.B = B; p.QPU = QPU; p.T = T; p.row0 = row0; p.W = W;
     p.gapo1 = gapo1; p.gape1 = gape1; p.gapo2 = gapo2; p.gape2 = gape2;
     p.d_oh = d_oh; p.c_oh = c_oh; p.ppb = pairs_per_block;

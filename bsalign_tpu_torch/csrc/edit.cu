@@ -41,6 +41,18 @@
 // The band shift by whole words crosses lanes through a small shared
 // buffer. One warp per block, so the pairs spread over the SMs.
 //
+// Bands past 32 x 16 = 512 words (16,384 bits) take the segmented row
+// (edit_seg_rows_kernel): the pair's row of pm/pp words lives in memory,
+// two rows double-buffered (16 bytes a word): in shared memory beside the
+// staged Eq planes while they fit the block's 227 KB (NW 3,200, a 100 kb
+// band, takes 51 KB), else in device memory (p.seg, 4 * NW words a pair).
+// The warp walks a row in segments of 32 x SEG_K words, in order; each
+// segment passes its addition carry and the top bits of its HP/HN words on
+// to the next, so the step is the same Myers step over the same words in
+// the same order, bit for bit. The band shift reads the row before at its
+// shifted offset (the other buffer, so no word is read after it is
+// overwritten). NW <= 512 keeps the register kernel above.
+//
 // Layouts (int32 holding uint32 bits where planes are concerned):
 //   qeq [4, B, NWQ], qlen/tlen [B], tseq [B, T], rbegs/movxs [T, B];
 //   pm/pp [B, T, NW], sbeg [B, T], fin_pm/fin_pp [B, NW],
@@ -64,6 +76,8 @@ struct Params {
     uint32_t *fin_pm, *fin_pp;
     int B, T, NW, NWQ, mode;
     bool staged;             // the pair's four Eq planes copied to shared
+    uint32_t *seg;           // segmented rows: the state rows in device
+                             // memory (4 * NW words a pair), or null
 };
 
 // Eq planes up to this many bytes per pair are staged in shared memory
@@ -336,6 +350,180 @@ __global__ void __launch_bounds__(32) edit_rows_kernel(Params p) {
     }
 }
 
+constexpr int SEG_K = 8;   // words per lane of one segment (256 a segment)
+
+template <int MODE>
+__global__ void __launch_bounds__(32) edit_seg_rows_kernel(Params p) {
+    constexpr int K = SEG_K;
+    extern __shared__ uint32_t eq_s[];   // staged Eq planes, then the state
+    const int b = blockIdx.x;
+    const int lane = threadIdx.x;
+    const int NW = p.NW, bw = 32 * NW, T = p.T, B = p.B, NWQ = p.NWQ;
+    const uint32_t *qeq = p.qeq;
+    int pstride = B * NWQ, pbase = b * NWQ;
+    if (p.staged) {
+        for (int w = lane; w < 4 * NWQ; w += 32)
+            eq_s[w] = __ldg(p.qeq + ((size_t)(w / NWQ) * B + b) * NWQ
+                            + w % NWQ);
+        qeq = eq_s;
+        pstride = NWQ;
+        pbase = 0;
+    }
+    // state row c: pm at st + 2 * c * NW, pp NW words on
+    uint32_t *const st = p.seg ? p.seg + (size_t)b * 4 * NW
+                               : eq_s + (p.staged ? 4 * NWQ : 0);
+    for (int w = lane; w < NW; w += 32) { st[w] = 0u; st[NW + w] = FULL; }
+    __syncwarp();
+    const int qlen = p.qlen[b];
+    const int tlen = min(p.tlen[b], T);
+    const int *tseq = p.tseq + (size_t)b * T;
+    uint32_t *out_pm = p.pm + (size_t)b * T * NW;   // row i's words,
+    uint32_t *out_pp = p.pp + (size_t)b * T * NW;   // advanced by rows
+    const int nseg = (NW + 32 * K - 1) / (32 * K);
+    int sbeg = 0, smin = SMIN0, ry = 0, rbeg_f = 0, cur = 0;
+    for (int i = 0; i < tlen; ++i) {
+        const Row r = load_row(tseq, p.rbegs + b, p.movxs + b, B, pstride,
+                               pbase, i, tlen);
+        const uint32_t *opm = st + 2 * cur * NW, *opp = opm + NW;
+        uint32_t *npm = st + 2 * (1 - cur) * NW, *npp = npm + NW;
+        // band shift (striped_seqedit_row_movx, bsalign.h:658-721), read
+        // from the row before at the shifted offset
+        const bool shift = MODE != OVERLAP && r.movx > 0;
+        const int mv = min(r.movx, bw), ws = r.movx >> 5, bs = r.movx & 31;
+        int dsh = 0, dtr = 0;   // lane's popcount sums: shift, row score
+        const int ntr = min(max(qlen - r.rbeg, 0), bw);
+        uint32_t cin = 0u;      // the addition's carry into the segment
+        uint32_t lo_in = MODE == OVERLAP ? 0u : 1u;   // HP / HN bits into it
+        for (int sg = 0; sg < nseg; ++sg) {
+            const int w0 = sg * 32 * K + lane * K;
+            uint32_t pm[K], pp[K], e[K + 1];
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const int w = w0 + j;
+                if (w >= NW) { pm[j] = 0u; pp[j] = FULL; continue; }
+                if (!shift) {
+                    pm[j] = opm[w];
+                    pp[j] = opp[w];
+                    continue;
+                }
+                const uint32_t m = lowmask(w, mv);
+                if (m) dsh += __popc(opp[w] & m) - __popc(opm[w] & m);
+                if (r.movx >= bw) { pm[j] = 0u; pp[j] = FULL; continue; }
+                const int s = w + ws;
+                const uint32_t lm = s < NW ? opm[s] : 0u;
+                const uint32_t lp = s < NW ? opp[s] : 0u;
+                const uint32_t hm = s + 1 < NW ? opm[s + 1] : 0u;
+                const uint32_t hp = s + 1 < NW ? opp[s + 1] : 0u;
+                const uint32_t keep = lowmask(w, bw - r.movx);
+                pm[j] = __funnelshift_r(lm, hm, bs) & keep;
+                pp[j] = (__funnelshift_r(lp, hp, bs) & keep) | ~keep;
+            }
+            load_eq<K>(qeq, NWQ, r, w0, e);
+            // Myers step, Eq from band position rbeg on
+            const int eb = r.rbeg & 31;
+            uint32_t X[K], s0[K];
+            bool gen[K], prop[K];
+            bool G = false, P = true;
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                X[j] = __funnelshift_r(e[j], e[j + 1], eb) | pm[j];
+                const uint32_t ad = X[j] & pp[j];
+                s0[j] = ad + pp[j];
+                gen[j] = s0[j] < ad;
+                prop[j] = s0[j] == FULL;
+                G = gen[j] || (prop[j] && G);
+                P = P && prop[j];
+            }
+            // carry into each lane: lookahead over the lanes' (G, P) bits
+            // with the segment's carry in; its carry out goes on
+            const uint32_t gm = __ballot_sync(FULL, G);
+            const uint32_t pmask = __ballot_sync(FULL, P) | gm;
+            const unsigned long long sum =
+                (unsigned long long)pmask + gm + cin;
+            bool c = ((((uint32_t)sum) ^ pmask ^ gm) >> lane) & 1u;
+            cin = (uint32_t)(sum >> 32);
+            uint32_t HP[K], HN[K], D0[K];
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const uint32_t A = s0[j] + (c ? 1u : 0u);
+                c = gen[j] || (prop[j] && c);
+                D0[j] = (A ^ pp[j]) | X[j];
+                HP[j] = pm[j] | ~(D0[j] | pp[j]);
+                HN[j] = pp[j] & D0[j];
+            }
+            // one-bit left shift across words; lane 0 takes the top bits of
+            // the segment before (hp_in / 0 in the first)
+            const uint32_t top = (HP[K - 1] >> 31) | (HN[K - 1] >> 31 << 1);
+            uint32_t lo = __shfl_up_sync(FULL, top, 1);
+            if (lane == 0) lo = lo_in;
+            lo_in = __shfl_sync(FULL, top, 31);
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const uint32_t hps =
+                    (HP[j] << 1) | (j ? HP[j - 1] >> 31 : lo & 1u);
+                const uint32_t hns =
+                    (HN[j] << 1) | (j ? HN[j - 1] >> 31 : lo >> 1);
+                pp[j] = hns | ~(D0[j] | hps);
+                pm[j] = hps & D0[j];
+            }
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const int w = w0 + j;
+                if (w < NW) {
+                    npm[w] = pm[j];
+                    npp[w] = pp[j];
+                    out_pm[w] = pm[j];
+                    out_pp[w] = pp[j];
+                    if (MODE != GLOBAL) {
+                        const uint32_t m = lowmask(w, ntr);
+                        dtr += __popc(pp[j] & m) - __popc(pm[j] & m);
+                    }
+                }
+            }
+        }
+        if (shift) sbeg += __reduce_add_sync(FULL, dsh);
+        if (MODE != OVERLAP) sbeg += 1;
+        if (MODE != GLOBAL) {   // overlap/extend: row score at H(qlen-1, i)
+            const int srow = sbeg + __reduce_add_sync(FULL, dtr);
+            if (srow < smin) { smin = srow; ry = i; }
+        }
+        if (lane == 0) p.sbeg[(size_t)b * T + i] = sbeg;
+        rbeg_f = r.rbeg;
+        out_pm += NW;
+        out_pp += NW;
+        cur = 1 - cur;
+        __syncwarp();
+    }
+    const uint32_t *fpm = st + 2 * cur * NW;
+    for (int w = lane; w < NW; w += 32) {
+        p.fin_pm[(size_t)b * NW + w] = fpm[w];
+        p.fin_pp[(size_t)b * NW + w] = fpm[NW + w];
+    }
+    if (lane == 0) {
+        int *s = p.scal + (size_t)b * 4;
+        s[0] = sbeg; s[1] = smin; s[2] = ry; s[3] = rbeg_f;
+    }
+}
+
+// Dynamic shared memory of the segmented kernel: the staged Eq planes and,
+// unless p.seg holds them, the two state rows.
+int seg_smem(const Params &p) {
+    return (p.staged ? 16 * p.NWQ : 0) + (p.seg ? 0 : 16 * p.NW);
+}
+
+template <int MODE>
+cudaError_t launch_seg(const Params &p, cudaStream_t stream) {
+    const int smem = seg_smem(p);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            edit_seg_rows_kernel<MODE>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+    }
+    edit_seg_rows_kernel<MODE><<<p.B, 32, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
 template <int K, int MODE, bool FULLW>
 cudaError_t launch_k(const Params &p, cudaStream_t stream) {
     const int smem = p.staged ? 16 * p.NWQ : 0;
@@ -367,13 +555,16 @@ cudaError_t launch(const Params &p, bool aligned, cudaStream_t stream) {
 
 }  // namespace
 
-// NW above 32 * 16 = 512 words (band 16384) is refused; the wrapper raises
-// first (ops/_cuda.py EDIT_MAX_NW).
+// NW above 32 * 16 = 512 words (band 16384) runs the segmented kernel;
+// seg, when not null, holds its state rows (4 * NW words a pair), which
+// the wrapper allocates when they do not fit shared memory beside the Eq
+// planes (ops/_cuda.py edit_rows).
 extern "C" int bsa_edit_rows(const int *qeq, const int *qlen, const int *tseq,
                              const int *tlen, const int *rbegs,
                              const int *movxs, int *pm, int *pp, int *sbeg,
-                             int *fin_pm, int *fin_pp, int *scal, int B, int T,
-                             int NW, int NWQ, int mode, void *stream) {
+                             int *fin_pm, int *fin_pp, int *scal, void *seg,
+                             int B, int T, int NW, int NWQ, int mode,
+                             void *stream) {
     const bool aligned =
         ((reinterpret_cast<uintptr_t>(pm) | reinterpret_cast<uintptr_t>(pp)
           | reinterpret_cast<uintptr_t>(fin_pm)
@@ -383,9 +574,14 @@ extern "C" int bsa_edit_rows(const int *qeq, const int *qlen, const int *tseq,
              reinterpret_cast<uint32_t *>(pp), sbeg, scal,
              reinterpret_cast<uint32_t *>(fin_pm),
              reinterpret_cast<uint32_t *>(fin_pp), B, T, NW, NWQ, mode,
-             16 * NWQ <= EQ_SMEM_MAX};
+             16 * NWQ <= EQ_SMEM_MAX, static_cast<uint32_t *>(seg)};
     if (B <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (NW > 512) {
+        if (p.mode == OVERLAP) return launch_seg<OVERLAP>(p, s);
+        if (p.mode == EXTEND) return launch_seg<EXTEND>(p, s);
+        return launch_seg<GLOBAL>(p, s);
+    }
     const int k = (NW + 31) / 32;
     if (k <= 1) return launch<1>(p, aligned, s);
     if (k <= 2) return launch<2>(p, aligned, s);

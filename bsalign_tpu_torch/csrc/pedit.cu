@@ -54,6 +54,15 @@
 //   only in the 16-byte chunks a job shares with its neighbours. The
 //   caller allocates the outputs without zeroing them.
 //
+// Bands past 32 x 32 - 2 = 1,022 cells take the wide row
+// (pedit_wide_rows_kernel): one warp a job and a block. A step depends only
+// on the row before, which the ring still holds, so the warp reads it back
+// from the ring and sweeps the step in slices of 32 cells, one cell a
+// lane, writing each cell through the ring as the narrow rows do; the ring
+// (a power of two >= 2 rows + 512 positions) holds the row before, the row
+// being written and what waits to be flushed. bw + 2 <= 32,512 fits the
+// block's 227 KB.
+//
 // Layouts: rd / cn hold the bases, one plane of `pad` bytes per job (read
 // side) or per window (consensus side); rdm / cnm the counts, one uint32 per
 // position (byte c = count of base c), at the same offsets in words. jobs
@@ -125,22 +134,23 @@ __device__ __forceinline__ void st_ring(uint32_t a, int v0, int v1) {
 }
 
 // Write stream positions [lo, hi) (lo a multiple of 16, hi - lo <= WIN)
-// from the ring (position x: byte 2 * (x & (RS-1)) of matrix 0, the next
-// of matrix 1) to device bytes g0/g1 (16-byte aligned), those in the
-// job's [beg, end) alone: per lane, 16 positions as two 16-byte loads,
-// split by byte permutes into one 16-byte store per matrix where the chunk
-// lies inside the job, bytewise at the job's two ends.
-template <int RS>
-__device__ __noinline__ void flush(uint8_t *g0, uint8_t *g1,
-                                      const uint8_t *ring, int lo, int hi,
-                                      int beg, int end, int lane) {
+// from the ring (position x: byte 2 * (x & rm) of matrix 0, the next of
+// matrix 1; rm = the ring's positions - 1) to device bytes g0/g1 (16-byte
+// aligned), those in the job's [beg, end) alone: per lane, 16 positions as
+// two 16-byte loads, split by byte permutes into one 16-byte store per
+// matrix where the chunk lies inside the job, bytewise at the job's two
+// ends.
+__device__ __forceinline__ void flush_body(uint8_t *g0, uint8_t *g1,
+                                           const uint8_t *ring, int rm,
+                                           int lo, int hi, int beg, int end,
+                                           int lane) {
     __syncwarp();
     const int q = lo + 16 * lane;
     if (q < hi) {
         const int a = max(q, beg), b = min(min(q + 16, hi), end);
         if (a == q && b == q + 16) {
             const uint4 *r = reinterpret_cast<const uint4 *>(
-                ring + 2 * (q & (RS - 1)));
+                ring + 2 * (q & rm));
             const uint4 u = r[0], v = r[1];
             *reinterpret_cast<uint4 *>(g0 + q) = make_uint4(
                 __byte_perm(u.x, u.y, 0x6420), __byte_perm(u.z, u.w, 0x6420),
@@ -150,12 +160,25 @@ __device__ __noinline__ void flush(uint8_t *g0, uint8_t *g1,
                 __byte_perm(v.x, v.y, 0x7531), __byte_perm(v.z, v.w, 0x7531));
         } else {
             for (int x = a; x < b; ++x) {
-                g0[x] = ring[2 * (x & (RS - 1))];
-                g1[x] = ring[2 * (x & (RS - 1)) + 1];
+                g0[x] = ring[2 * (x & rm)];
+                g1[x] = ring[2 * (x & rm) + 1];
             }
         }
     }
     __syncwarp();
+}
+
+// the flush out of line: a ring of RS positions, or (the wide row) of any
+template <int RS>
+__device__ __noinline__ void flush(uint8_t *g0, uint8_t *g1,
+                                   const uint8_t *ring, int lo, int hi,
+                                   int beg, int end, int lane) {
+    flush_body(g0, g1, ring, RS - 1, lo, hi, beg, end, lane);
+}
+__device__ __noinline__ void flush_wide(uint8_t *g0, uint8_t *g1,
+                                        const uint8_t *ring, int rm, int lo,
+                                        int hi, int beg, int end, int lane) {
+    flush_body(g0, g1, ring, rm, lo, hi, beg, end, lane);
 }
 
 template <int K>
@@ -299,6 +322,98 @@ __global__ void __launch_bounds__(32 * WARPS) pedit_rows_kernel(Params p) {
     if (q > done) flush<RS>(g0, g1, ring, done, q, beg, end, lane);
 }
 
+// Positions of the wide row's ring: the power of two >= 2 rows + WIN.
+int wide_ring(int bw) {
+    int rs = 1024;
+    while (rs < 2 * (bw + 2) + WIN) rs *= 2;
+    return rs;
+}
+
+__global__ void __launch_bounds__(32) pedit_wide_rows_kernel(Params p,
+                                                              int RS) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int lane = threadIdx.x;
+    const int j = blockIdx.x;
+    const int64_t *jb = p.jobs + (size_t)j * 8;
+    const uint8_t *rd = p.rd + jb[0], *cn = p.cn + jb[1];
+    const uint32_t *rdm = p.rdm + jb[0], *cnm = p.cnm + jb[1];
+    const int pad = (int)jb[3], mlen = (int)jb[4], mbeg = (int)jb[5],
+              mend = (int)jb[6];
+    const int bw = p.bw, HW = p.HW, rowlen = bw + 2;
+    const int nrows = 2 * mlen + 2;
+    const int rm = RS - 1;
+    const int beg = (int)(jb[2] & 15), end = beg + nrows * rowlen;
+    uint8_t *g0 = p.out0 + (jb[2] - beg), *g1 = p.out1 + (jb[2] - beg);
+    const uint8_t *ring = smem;
+    const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(smem);
+    int q = beg, done = 0;
+    auto at = [&](int x) { return ring_s + 2 * (x & rm); };
+    // after a row: the row is visible to every lane, full windows go out
+    auto next_row = [&]() {
+        q += rowlen;
+        while (q - done >= WIN) {
+            flush_wide(g0, g1, ring, rm, done, done + WIN, beg, end, lane);
+            done += WIN;
+        }
+        __syncwarp();
+    };
+    auto zero_row = [&]() {
+        for (int t = lane; t < rowlen; t += 32) st_ring(at(q + t), 0, 0);
+        next_row();
+    };
+
+    // rows before the seed
+    for (int r = 0; r < 2 * mbeg; ++r) zero_row();
+    // the seed row (bytes 255 at HW in matrix 0, HW + 1 in matrix 1)
+    for (int t = lane; t < rowlen; t += 32)
+        st_ring(at(q + t), t == HW ? 255 : 0, t == HW + 1 ? 255 : 0);
+    next_row();
+    // step s writes row 2 * mbeg + 1 + s from the row before it (at q -
+    // rowlen): x side at X = mbeg + (s + 1) / 2, y side at Y = mbeg + s / 2
+    const int nsteps = max(2 * (mend - mbeg) - 1, 1);
+    for (int s = 0; s < nsteps; ++s) {
+        const int odd = s & 1;
+        const int x0 = mbeg + (s + 1) / 2, y0 = mlen - 1 - (mbeg + s / 2);
+        const int pr = q - rowlen;
+        for (int i = lane; i < bw; i += 32) {
+            int xsel, ysel;
+            uint32_t xc, yc;
+            const int ix = x0 + i, iy = y0 + i;
+            load_pos(rd + ix, rdm + ix, (unsigned)ix < (unsigned)pad, 4, xsel,
+                     xc);
+            load_pos(cn + iy, cnm + iy, (unsigned)iy < (unsigned)pad, 0, ysel,
+                     yc);
+            // even: pu = matrix 0 at cell 1 + i, pv = matrix 1 at cell i;
+            // odd: one cell further
+            const int pu = ring[2 * ((pr + 1 + odd + i) & rm)];
+            const int pv = ring[2 * ((pr + odd + i) & rm) + 1];
+            const int h = __vimax3_s32(score(xsel, xc, ysel, yc), pu, pv);
+            st_ring(at(q + 1 + i), h - pv, h - pu);
+        }
+        // edges: matrix 0 cell 0 is 255 on odd steps, matrix 1 cell bw + 1
+        // on even ones; the other two edge bytes are 0
+        if (lane == 0) st_ring(at(q), odd ? 255 : 0, 0);
+        if (lane == 1) st_ring(at(q + bw + 1), 0, odd ? 0 : 255);
+        next_row();
+    }
+    // rows after the last step, then what is left in the ring
+    for (int r = 2 * mbeg + 1 + nsteps; r < nrows; ++r) zero_row();
+    if (q > done) flush_wide(g0, g1, ring, rm, done, q, beg, end, lane);
+}
+
+cudaError_t launch_wide(const Params &p, cudaStream_t stream) {
+    const int rs = wide_ring(p.bw);
+    const int smem = 2 * rs;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            pedit_wide_rows_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+    }
+    pedit_wide_rows_kernel<<<p.J, 32, smem, stream>>>(p, rs);
+    return cudaGetLastError();
+}
+
 template <int K>
 cudaError_t launch(const Params &p, cudaStream_t stream) {
     const int blocks = (p.J + WARPS - 1) / WARPS;
@@ -309,21 +424,22 @@ cudaError_t launch(const Params &p, cudaStream_t stream) {
 
 }  // namespace
 
-// bw above 32 * MAX_K - 2 = 1022 cells is refused, and outputs that are
-// not 16-byte aligned; the wrapper raises first (ops/_cuda.py
-// PEDIT_MAX_BW).
+// bw above 32 * MAX_K - 2 = 1022 cells runs the wide row, whose ring
+// takes bw + 2 <= 32,512 (the wrapper raises past it, ops/_cuda.py
+// PEDIT_MAX_BW); outputs that are not 16-byte aligned are refused.
 extern "C" int bsa_pedit_rows(const uint8_t *rd, const uint8_t *cn,
                               const uint32_t *rdm, const uint32_t *cnm,
                               const int64_t *jobs, uint8_t *out0,
                               uint8_t *out1, int J, int bw, int HW,
                               void *stream) {
     if (J <= 0) return 0;
-    if (bw < 1 || bw + 2 > 32 * MAX_K) return cudaErrorInvalidValue;
+    if (bw < 1) return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(out0) | reinterpret_cast<uintptr_t>(out1))
         & 15)
         return cudaErrorMisalignedAddress;
     const Params p{rd, cn, rdm, cnm, jobs, out0, out1, J, bw, HW};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (bw + 2 > 32 * MAX_K) return launch_wide(p, s);
     const int k = (bw + 31) / 32;
     if (k <= 1) return launch<1>(p, s);
     if (k <= 2) return launch<2>(p, s);

@@ -27,9 +27,18 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 PAIRS_PER_BLOCK = 2   # one warp per block: 256 pairs spread over 128 SMs
+SMEM_MAX = 227 * 1024   # shared memory one block may take on the H100
 
-EDIT_MAX_NW = 512     # widest edit band the kernel is built for (16384 bits)
-PEDIT_MAX_BW = 1022   # widest pedit band: bw cells, 32 per lane of one warp
+# edit: bands past 512 words (16,384 bits) run the segmented row, its two
+# state rows (16 bytes a word) in shared memory beside the staged Eq planes
+# (queries up to 131,072 bases) while they fit, else in device memory
+EDIT_REG_NW = 512
+EDIT_EQ_SMEM_MAX = 64 * 1024
+# pedit: bands past 1,022 cells run the wide row, one job a block, its
+# stream ring (2 bytes a position, a power of two >= 2 rows + 512) in shared
+# memory: bw + 2 <= 32,512
+PEDIT_REG_BW = 1022
+PEDIT_MAX_BW = 32510
 
 # kernel launches of bsa_banded8_rows in this process, by emit
 launches_codes = 0
@@ -62,10 +71,10 @@ def lib():
                 "kernels", srcs, [_nvcc()] + NVCC_FLAGS, [_nvcc(), "-shared"])
             so = ctypes.CDLL(path)
             so.bsa_banded8_rows.argtypes = \
-                [ctypes.c_void_p] * 24 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 25 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
             so.bsa_banded8_rows.restype = ctypes.c_int
             so.bsa_edit_rows.argtypes = \
-                [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             so.bsa_edit_rows.restype = ctypes.c_int
             so.bsa_pedit_rows.argtypes = \
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -87,13 +96,25 @@ EMIT_CODE = {"codes": 0, "planes": 1, "none": 2}
 SPLIT_PHASES = ("move", "head", "pass1", "floop", "pass2", "steer", "emit")
 
 
-def banded8_rows(g, st, *, cycle_split=False):
+def banded8_store_bytes(W, piecewise, pairs=PAIRS_PER_BLOCK):
+    """Bytes of the banded-8 kernel's plane store for `pairs` pairs: two
+    buffers of piecewise + 1 planes of 16 lanes, each lane's W stripes
+    padded to an odd number of 8-byte words."""
+    return pairs * 2 * (piecewise + 1) * WS * 8 * (-(-W // 8) | 1)
+
+
+def banded8_rows(g, st, *, cycle_split=False, store=None):
     """Launch the banded-8 kernel for geometry g (its emit: codes, planes or
     none) on state st (a banded8.State on one CUDA device, resumed at
     st.row0 from st.reg). Returns the raw outputs as device tensors, with
     the keys of banded8.forward_plain. With cycle_split, out["cycles"] is
     an int64 [len(SPLIT_PHASES), B] tensor: each pair's SM clock cycles per
-    phase, summed over its rows below tlen (the main paths never ask)."""
+    phase, summed over its rows below tlen (the main paths never ask).
+
+    `store` says where the band's planes live: None (every main path)
+    takes shared memory when a block's planes fit SMEM_MAX and else a
+    scratch in device memory; "shared" or "global" forces one (tests hold
+    the two against each other)."""
     global launches_codes, launches_planes, launches_none
     pw = g.piecewise
     if g.emit not in EMIT_CODE or pw not in (0, 1, 2) \
@@ -116,11 +137,13 @@ def banded8_rows(g, st, *, cycle_split=False):
         _check("es", st.es, (W, WS, B))
     if pw == 2:
         _check("qs", st.qs, (W, WS, B))
-    NG = -(-W // 8)   # each lane's stripes in groups of 8, an odd number
-    smem = PAIRS_PER_BLOCK * 2 * (pw + 1) * WS * 8 * (NG | 1)
-    if smem > 227 * 1024:
-        raise NotImplementedError(f"band {BW} needs {smem} bytes of shared "
-                                  "memory per block, above the card's 227 KB")
+    smem = banded8_store_bytes(W, pw)
+    if store is None:
+        store = "shared" if smem <= SMEM_MAX else "global"
+    if store not in ("shared", "global") or (store == "shared"
+                                             and smem > SMEM_MAX):
+        raise ValueError(f"banded8 kernel: store {store!r} at band {BW} "
+                         f"({smem} bytes of planes a block)")
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -142,6 +165,10 @@ def banded8_rows(g, st, *, cycle_split=False):
     fin = out["fin_planes"] + [None] * (2 - pw)
     cycles = torch.zeros(len(SPLIT_PHASES), B, dtype=torch.int64,
                          device=dev) if cycle_split else None
+    # one slot per pair of the grid's blocks, a missing last pair's too
+    slots = -(-B // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK
+    gs = empty(banded8_store_bytes(W, pw, slots), dtype=torch.int8) \
+        if store == "global" else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -156,7 +183,7 @@ def banded8_rows(g, st, *, cycle_split=False):
             *(ptr(out.get(k)) for k in ("codes", "us", "es", "qs", "ubegs",
                                         "begs")),
             *(ptr(t) for t in fin), ptr(out["fin_ub"]), ptr(out["fin_reg"]),
-            ptr(cycles), B, qb.shape[1], T,
+            ptr(cycles), ptr(gs), B, qb.shape[1], T,
             int(st.row0), W, 0 if mt == MODE_GLOBAL else
             (1 if mt == MODE_OVERLAP else 2), pw, EMIT_CODE[g.emit],
             g.gapo1, g.gape1, g.gapo2, g.gape2, d_oh, c_oh, PAIRS_PER_BLOCK,
@@ -179,10 +206,6 @@ def edit_rows(g, ops):
     operands ops (ops.edit.Operands, on one CUDA device). Returns the raw
     outputs as device tensors: pm, pp, sbeg, fin_pm, fin_pp, scal."""
     global edit_launches
-    if g.NW > EDIT_MAX_NW:
-        raise NotImplementedError(
-            f"edit band of {g.NW} words ({g.bw} bits) exceeds the kernel's "
-            f"limit of {EDIT_MAX_NW} words ({EDIT_MAX_NW * 32} bits)")
     _, B, NWQ = ops.qeq.shape
     T, NW = g.T, g.NW
     _check("qeq", ops.qeq, (4, B, NWQ), "edit")
@@ -198,6 +221,11 @@ def edit_rows(g, ops):
 
     out = dict(pm=empty(B, T, NW), pp=empty(B, T, NW), sbeg=empty(B, T),
                fin_pm=empty(B, NW), fin_pp=empty(B, NW), scal=empty(B, 4))
+    # past EDIT_REG_NW the segmented row keeps two state rows of 16 bytes a
+    # word in shared memory beside the staged Eq planes, or here
+    eq_smem = 16 * NWQ if 16 * NWQ <= EDIT_EQ_SMEM_MAX else 0
+    seg = empty(B, 4 * NW) if NW > EDIT_REG_NW \
+        and eq_smem + 16 * NW > SMEM_MAX else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib().bsa_edit_rows(
@@ -205,6 +233,7 @@ def edit_rows(g, ops):
             ops.tlen.data_ptr(), ops.rbegs.data_ptr(), ops.movxs.data_ptr(),
             *(out[k].data_ptr() for k in ("pm", "pp", "sbeg", "fin_pm",
                                           "fin_pp", "scal")),
+            None if seg is None else seg.data_ptr(),
             B, T, NW, NWQ, mode_type(g.mode), stream)
     if rc != 0:
         raise RuntimeError(f"edit kernel launch failed: CUDA error {rc}")
@@ -223,8 +252,9 @@ def pedit_rows(pk, out=None):
     if pk.bw > PEDIT_MAX_BW:
         raise NotImplementedError(
             f"pedit band of {pk.bw} cells exceeds the kernel's limit of "
-            f"{PEDIT_MAX_BW} (32 cells per lane of one warp, bw + 2 <= "
-            f"{PEDIT_MAX_BW + 2})")
+            f"{PEDIT_MAX_BW} (the wide row's ring of 2 bytes a position, a "
+            f"power of two >= 2 rows + 512, in {SMEM_MAX} bytes of shared "
+            f"memory)")
     for name, dt in (("rd", torch.uint8), ("cn", torch.uint8),
                      ("rdm", torch.uint8), ("cnm", torch.uint8),
                      ("jobs", torch.int64)):

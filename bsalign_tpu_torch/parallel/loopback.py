@@ -8,7 +8,9 @@ process runs the same command without --dist. On CUDA each process takes
 card (process index % card count), so on one card all of them share it.
 
     python -m bsalign_tpu_torch.parallel.loopback pairs.fa \\
-        [--cmd align] [--nprocs 2] [--device cpu] [-- -m global -W 128]
+        [--cmd align] [--nprocs 2] [--device cuda|cpu] [-- -m global -W 128]
+
+The device is the card unless --device cpu asks for the CPU.
 
 Exit code 0 iff the gathered output equals the single process's, byte for
 byte.
@@ -56,7 +58,7 @@ def _cmd(cmd: str, device: str, flags: Sequence[str], path: str,
 
 
 def run_loopback(pair_file: str, *, cmd: str = "align", nprocs: int = 2,
-                 device: str = "cpu", flags: Sequence[str] = (),
+                 device: str = "cuda", flags: Sequence[str] = (),
                  timeout: float = 600, env: Optional[Dict[str, str]] = None):
     """Run `cmd` once in one process and once in `nprocs` processes with
     --dist. Returns (single_stdout, gathered_stdout, info): info holds
@@ -114,7 +116,7 @@ def main(argv=None) -> int:
     ap.add_argument("pairs")
     ap.add_argument("--cmd", default="align", choices=("align", "edit"))
     ap.add_argument("--nprocs", type=int, default=2)
-    ap.add_argument("--device", default="cpu", choices=("cuda", "cpu"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--timeout", type=float, default=600)
     ap.add_argument("flags", nargs="*", help="the command's own flags")
     args = ap.parse_args(argv)

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..ops import pedit as PE
 from .core import BSPOA, BSPOAPar
@@ -127,9 +128,38 @@ def run_windows_lockstep(windows: Sequence[Sequence],
     return [_window_result(g, want_msa) for g in gs]
 
 
+def _run_share(args) -> List[WindowResult]:
+    """A forked worker's share of run_windows: its windows in lockstep on
+    the CPU, on one thread."""
+    share, par, want_msa = args
+    torch.set_num_threads(1)
+    return run_windows_lockstep(share, par, device="cpu", want_msa=want_msa)
+
+
 def run_windows(windows: Sequence[Sequence], par: Optional[BSPOAPar] = None,
-                *, device, want_msa: bool = False) -> List[WindowResult]:
+                nproc: int = 0, *, device,
+                want_msa: bool = False) -> List[WindowResult]:
     """POA every window on `device`, in lockstep (run_windows_lockstep).
-    Results keep window order."""
-    return run_windows_lockstep(windows, par, device=device,
-                                want_msa=want_msa)
+
+    With nproc > 1 on the CPU, a pool of nproc forked workers runs
+    contiguous shares of the windows, each in lockstep; 0/1 runs in this
+    process. On a CUDA device nproc > 1 raises ValueError. Results keep
+    window order either way."""
+    device = torch.device(device)
+    if not (nproc and nproc > 1 and len(windows) > 1):
+        return run_windows_lockstep(windows, par, device=device,
+                                    want_msa=want_msa)
+    if device.type != "cpu":
+        raise ValueError(
+            f"run_windows: nproc={nproc} forks CPU workers, and a CUDA "
+            "context does not survive fork; on the card every window's "
+            "realignment round is already one launch (use nproc=0)")
+    import multiprocessing as mp
+    par = par or BSPOAPar()
+    n = min(nproc, len(windows))
+    cuts = [len(windows) * k // n for k in range(n + 1)]
+    tasks = [(list(windows[a:b]), par, want_msa)
+             for a, b in zip(cuts, cuts[1:])]
+    with mp.get_context("fork").Pool(n) as pool:
+        parts = pool.map(_run_share, tasks)
+    return [r for part in parts for r in part]

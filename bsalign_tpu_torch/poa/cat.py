@@ -10,9 +10,9 @@ Each join is one `align_batch` call of one pair in overlap mode at the band
 the scalar oracle takes for bandwidth 0, roundup(qlen, 16): on a CUDA
 device the banded-8 kernel, on the CPU its plain version. Joins run one
 after another, since each join's query is the tail of the consensus built
-so far. The band's width is the window's, so a window past about 7,200 on
-the 4x retry (a band past 29,056 at affine gaps) raises
-NotImplementedError on the card.
+so far. The band's width is the window's: the 4x retry of a window of
+8,192 aligns at band 32,768, whose planes the kernel keeps in device
+memory, in the two-pass mode of the driver.
 
 N is kept as code 4. The JAX package's oracle refuses an N that it reaches
 (an IndexError in its forward for an N in the target's window, in its

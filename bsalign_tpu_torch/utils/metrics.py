@@ -69,7 +69,7 @@ def timed(kernel: str, cells: float):
 
 
 @contextmanager
-def profile_trace(device="cpu"):
+def profile_trace(device):
     """torch.profiler trace of the wrapped region when BSA_PROFILE_DIR is
     set: a Chrome trace (host activity, and the kernels' timeline when
     `device` is a CUDA device) written to

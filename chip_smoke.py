@@ -9,6 +9,7 @@
                                      # main-path shape (phase 6's first
                                      # part) and phase 7, each kernel's
                                      # time beside its plain version's
+    python3 chip_smoke.py --wide     # phase 1, then phase 16 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -56,7 +57,7 @@ Phases, in order; any failure exits non-zero:
    at 12% error, band 32; the main path's shape, timed over 20 launches of
    the whole launcher, allocations included), those of the first 16
    windows also against the host's bsa_pedit_forward; random jobs at bw
-   34, 64, 96 and 128; the widest band the kernel takes (1022); the
+   34, 64, 96 and 128; the widest band of the register rows (1022); the
    shortest jobs (mend = mbeg + 1, + 2).
 8. The poa main path: `run_windows_lockstep` on the 128 windows with the
    default BSPOAPar on the card. The pedit kernel's launch count over that
@@ -117,6 +118,35 @@ Phases, in order; any failure exits non-zero:
    x 500 bp each) and remsa_lsps on 2 of them, on the card and on the
    CPU: MSAs, merged consensus and re-POAed windows equal; the pedit
    kernel launches at least once on the card.
+
+16. Wide bands, every check with tolerance 0 (the CPU reference of (e),
+   `edit --device cpu` on one pair, runs in a process of its own from the
+   end of phase 1 on):
+   (a) kernel A with its planes in device memory against shared memory
+   (the store forced both ways) at bands 128, 2,048 and 16,384 on 8 pairs
+   at 10% error, every emit at piecewise 0/1/2 (codes at 0/1), each output
+   and the final state, at band 2,048 also resumed in chunks of 1,024 rows;
+   (b) kernel A against its plain version at band 32,768 (W 2,048, planes
+   in device memory), piecewise 1 and 2, 2 pairs of 32 kb, the first 64
+   rows: planes and none emits and the final state, with both times;
+   (c) `align_batch` as the CLI calls it at its defaults (overlap, band
+   roundup(qlen, 128) = 32,000, -M 2 -X 6 -O 3 -E 2) on 8 pairs of 33 kb
+   targets at 10% error (the two-pass route): each CIGAR consumes exactly
+   its [qb, qe) x [tb, te) and re-scores to the reported score, and a
+   one-shot scores-only forward over all rows gives each score and end;
+   prints pass 1, the re-forwards, the walk, pairs/s and peak memory;
+   (d) the same on 4 pairs of 24.7 kb with -M 2 -X 4 -O 4 -E 2 -Q 24 -P 1
+   (band 24,064, planes and backcal), split by LAUNCH_BYTES into at least
+   2 launch groups; (e) kernel B against its plain version at NW 640
+   (overlap, 4 x 20 kb against 2 kb) and NW 1,024 (global, 32 kb), then
+   `edit_batch` -W 0 global on 16 pairs (NW 752) in at least 2 launches,
+   pair 0's TSV equal to the CPU process's; (f) kernel C against its plain
+   version on random jobs at bw 1,024, 1,534 and 4,094 into buffers of
+   0xA5, then `poa -G editbw=4096` on one window: --device cuda == cpu;
+   (g) `cat` of two 40 kb pieces overlapping by 16,384 whose second states
+   overlap=8192: the join runs at band 8,192, then its 4x retry at band
+   32,768 on the card; the consensus has the expected length within 0.5%
+   and the retried join's CIGAR passes (c)'s checks.
 
 The cycle split (phases 3, 10 and 11, and --split): one launch with the
 kernel's optional per-phase clock64() counters on, against one with them
@@ -293,6 +323,80 @@ def gen_cat_windows(seed):
     return "".join(recs), "".join(recs[:CAT_CPU]), length + CAT_OV + 6
 
 
+# phase 16: align at the CLI defaults on long reads (query cut so that the
+# batch shares the band roundup(qlen, 128)), edit at -W 0, cat's retry
+# (queries of gen_pairs_fast come out about 1.5% shorter than the target)
+WIDE_ALIGN = (8, 33000, 31950)        # pairs, target length, query length
+WIDE_ONT = (4, 24700, 24000)          # the same with map-ont costs
+WIDE_EDIT = (16, 24700, 24000)        # edit -W 0: band 24,064 (NW 752)
+WIDE_CAT = (40000, 16384, 8192)       # piece length, real overlap, stated
+
+
+def wide_pairs(n, tlen, qlen, seed):
+    """gen_pairs_fast's pairs with each query cut to qlen bases."""
+    qs, ts = gen_pairs_fast(n, tlen, 0.10, seed)
+    if min(len(q) for q in qs) < qlen:
+        raise RuntimeError(f"a query of {tlen} bp is shorter than {qlen}")
+    return [q[:qlen] for q in qs], ts
+
+
+def gen_wide_cat(seed):
+    """Phase 16's cat input: two pieces of WIDE_CAT[0] bp of a seeded
+    contig that overlap by WIDE_CAT[1], each with 2% independent errors;
+    the second states overlap=WIDE_CAT[2], so its first alignment (the
+    pieces' last and first WIDE_CAT[2] bases) misses and the 4x retry
+    (band 4 x WIDE_CAT[2]) finds the join. Returns (fasta, the length the
+    consensus should have)."""
+    L, ov, stated = WIDE_CAT
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, 2 * L - ov).astype(np.uint8)
+    recs = []
+    for k, s in enumerate((ref[:L], ref[L - ov:])):
+        r = rng.random(len(s))
+        ins = (r >= 0.02 / 3) & (r < 0.04 / 3)
+        base = np.where(r < 0.02 / 3, (s + rng.integers(1, 4, len(s))) & 3,
+                        s)
+        rep = np.where((r >= 0.04 / 3) & (r < 0.02), 0, 1 + ins)
+        out = np.repeat(base, rep)
+        out[(np.cumsum(rep) - rep)[ins]] = rng.integers(0, 4, int(ins.sum()))
+        desc = f" overlap={stated}" if k else ""
+        recs.append(f">p{k}{desc}\n{''.join('ACGT'[c] for c in out)}\n")
+    return "".join(recs), len(ref)
+
+
+def check_alignment(q, t, rs, cigars, mtx, gaps, piecewise):
+    """What is wrong with one alignment: its CIGAR must consume exactly
+    [qb, qe) of q and [tb, te) of t, and its score recomputed from the
+    CIGAR and the costs (a gap of n: gapo1 + n * gape1, with 2-piece gaps
+    the larger of that and gapo2 + n * gape2) must equal rs.score."""
+    go1, ge1, go2, ge2 = gaps
+    x, y, score = rs.qb, rs.tb, 0
+    q = np.asarray(q, np.int64)
+    t = np.asarray(t, np.int64)
+    m = np.asarray(mtx, np.int64)
+    for cg in cigars:
+        op, n = cg & 0xF, cg >> 4
+        if op == 0:
+            score += int(m[q[x:x + n] * 4 + t[y:y + n]].sum())
+            x += n
+            y += n
+            continue
+        cost = go1 + ge1 * n
+        if piecewise == 2:
+            cost = max(cost, go2 + ge2 * n)
+        score += cost
+        if op == 1:
+            x += n
+        else:
+            y += n
+    bad = []
+    if (x, y) != (rs.qe, rs.te):
+        bad.append(f"CIGAR ends at ({x}, {y}), not ({rs.qe}, {rs.te})")
+    if score != rs.score:
+        bad.append(f"CIGAR scores {score}, the result {rs.score}")
+    return bad
+
+
 def pedit_work(jobs):
     """(bytes, cells) one pedit launch must move and compute for these
     jobs: of the inputs, 5 planes of pad bytes per job (read side) and per
@@ -365,14 +469,23 @@ def edit_bytes(g, ops):
 
 
 # the main paths' instantiations of each kernel, by template arguments:
-# banded-8 (piecewise, mode, emit), edit (K words per lane, mode, vector
-# stores; NW 64 is K 2), pedit (K cells per lane; band 32 is K 1)
+# banded-8 (piecewise, mode, emit, planes in device memory), edit (K words
+# per lane, mode, vector stores; NW 64 is K 2), pedit (K cells per lane;
+# band 32 is K 1); the wide bands' kernels of phase 16: banded-8 with its
+# planes in device memory (align's defaults, overlap), the segmented edit
+# row (mode) and the wide pedit row
 PTXAS_MAIN = {
-    "banded8": (((1, 0, 0), "pw1 global codes"),
-                ((1, 0, 2), "pw1 global none"),
-                ((2, 0, 1), "pw2 global planes")),
+    "banded8": (((1, 0, 0, 0), "pw1 global codes"),
+                ((1, 0, 2, 0), "pw1 global none"),
+                ((2, 0, 1, 0), "pw2 global planes"),
+                ((1, 1, 0, 1), "pw1 overlap codes, planes in device memory"),
+                ((1, 1, 2, 1), "pw1 overlap none, planes in device memory"),
+                ((2, 1, 1, 1), "pw2 overlap planes, planes in device "
+                 "memory")),
     "edit": (((2, 0, 1), "K 2 global (NW 64)"),),
+    "edit_seg": (((0,), "segmented row, global"),),
     "pedit": (((1,), "K 1 (band 32)"),),
+    "pedit_wide": (((), "wide row"),),
 }
 
 
@@ -381,8 +494,8 @@ def ptxas_report(srcs, flags):
     together (killed at exit if still running); returns a function that
     waits for them and returns {(kernel, template arguments): (registers,
     stack bytes, spill store bytes, spill load bytes)} for each
-    instantiation of banded8_rows_kernel, edit_rows_kernel and
-    pedit_rows_kernel."""
+    instantiation of banded8_rows_kernel, edit_rows_kernel,
+    edit_seg_rows_kernel, pedit_rows_kernel and pedit_wide_rows_kernel."""
     tmp = tempfile.mkdtemp()
     procs = []
     for k, src in enumerate(srcs):
@@ -405,10 +518,11 @@ def ptxas_report(srcs, flags):
                 m = re.search(r"(?:Compiling entry function|Function "
                               r"properties for) '?(\S+?)'?( for|$)", line)
                 if m:
-                    k = re.search(r"\d(banded8|pedit|edit)_rows_kernelI"
-                                  r"((?:L[ib]\d+E)+)E", m.group(1))
+                    k = re.search(r"\d(banded8|pedit_wide|pedit|edit_seg|"
+                                  r"edit)_rows_kernel(?:I((?:L[ib]\d+E)+)E)?",
+                                  m.group(1))
                     key = (k.group(1), tuple(int(x) for x in re.findall(
-                        r"L[ib](\d+)E", k.group(2)))) if k else None
+                        r"L[ib](\d+)E", k.group(2) or ""))) if k else None
                     continue
                 if key is None:
                     continue
@@ -520,9 +634,33 @@ def main() -> int:
         atexit.register(lambda: proc.poll() is None and proc.kill())
         return proc, paths, expect, time.time()
 
-    cat_cpu = None
+    def start_edit_cpu():
+        """Phase 16's CPU reference, started now in a process of its own
+        (one thread, lowest priority): `edit --device cpu -m global -W 0` on
+        the first pair of phase 16's edit batch."""
+        tmp = tempfile.mkdtemp(prefix="bsa_edit_")
+        atexit.register(shutil.rmtree, tmp, True)
+        qs, ts = wide_pairs(*WIDE_EDIT, SEED + 165)
+        path = os.path.join(tmp, "pair0.fa")
+        with open(path, "w") as f:
+            f.write(f">q0\n{''.join('ACGT'[b] for b in qs[0])}\n"
+                    f">t0\n{''.join('ACGT'[b] for b in ts[0])}\n")
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=HERE + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bsalign_tpu_torch", "edit", "--device",
+             "cpu", "-m", "global", "-W", "0", path], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            preexec_fn=lambda: os.nice(19))
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        return proc, time.time()
+
+    cat_cpu = edit_cpu = None
     if not sys.argv[1:]:
         cat_cpu = start_cat_cpu()
+    if not sys.argv[1:] or "--wide" in sys.argv[1:]:
+        edit_cpu = start_edit_cpu()
 
     mtx = O.set_score_matrix(2, -6)
     smax, smin = int(mtx.max()), int(mtx.min())
@@ -796,6 +934,49 @@ def main() -> int:
     from bsalign_tpu_torch.poa import batch as PB
     from bsalign_tpu_torch.poa.core import BSPOA, BSPOAPar
 
+    def rand_job(rng, mlen, bw, span=None):
+        """A random pedit job of mlen positions at band bw."""
+        HW = bw // 2
+        pad = mlen + bw
+        seqs0 = np.full(pad, 4, np.uint8)
+        pos = np.sort(rng.choice(mlen, int(rng.integers(mlen // 2, mlen)),
+                                 replace=False))
+        seqs0[HW + pos] = rng.integers(0, 4, len(pos))
+        seqs1 = np.zeros(pad, np.uint8)
+        seqs1[HW:HW + mlen] = rng.integers(0, 5, mlen)
+        mats0 = np.zeros((4, pad), np.uint8)
+        mats1 = np.zeros((4, pad), np.uint8)
+        mats0[:, HW:HW + mlen] = rng.integers(0, 6, (4, mlen))
+        mats1[:, HW:HW + mlen] = rng.integers(0, 251, (4, mlen))
+        if span is None:
+            mbeg = int(rng.integers(0, mlen // 4))
+            mend = int(rng.integers(mbeg + 2, mlen + 1))
+        else:
+            mbeg = int(rng.integers(0, mlen - span + 1))
+            mend = mbeg + span
+        return PE.PeditJob(seqs0, seqs1, mats0, mats1, mlen, mbeg, mend, bw,
+                           HW)
+
+    def pedit_compare(jobs):
+        """Kernel vs plain on the same device buffers: max |diff| over
+        both whole output matrices (the kernel's written over bytes of
+        0xA5, so a byte it leaves unwritten shows), the plain version's ms
+        and the kernel's matrices on the host."""
+        pk = PE.pack_jobs(jobs, dev)
+        k0, k1 = _cuda.pedit_rows(pk, out=tuple(
+            torch.full((pk.total,), 0xA5, dtype=torch.uint8, device=dev)
+            for _ in range(2)))
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p0, p1 = PE.forward_plain(pk)
+        e1.record()
+        torch.cuda.synchronize()
+        err = max(int((k0.int() - p0.int()).abs().max()),
+                  int((k1.int() - p1.int()).abs().max()))
+        return pk, err, e0.elapsed_time(e1), (k0.cpu().numpy(),
+                                              k1.cpu().numpy())
+
     def phase7():
         """The pedit kernel against its plain version (and the host's
         bsa_pedit_forward) on phase 7's cases and the main path's
@@ -818,26 +999,6 @@ def main() -> int:
         print(f"phase7 first-round jobs of 128 windows built on the host in "
               f"{time.time() - t0:.2f}s")
 
-        def pedit_compare(jobs):
-            """Kernel vs plain on the same device buffers: max |diff| over
-            both whole output matrices (the kernel's written over bytes of
-            0xA5, so a byte it leaves unwritten shows), and the plain
-            version's ms."""
-            pk = PE.pack_jobs(jobs, dev)
-            k0, k1 = _cuda.pedit_rows(pk, out=tuple(
-                torch.full((pk.total,), 0xA5, dtype=torch.uint8, device=dev)
-                for _ in range(2)))
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            p0, p1 = PE.forward_plain(pk)
-            e1.record()
-            torch.cuda.synchronize()
-            err = max(int((k0.int() - p0.int()).abs().max()),
-                      int((k1.int() - p1.int()).abs().max()))
-            return pk, err, e0.elapsed_time(e1), (k0.cpu().numpy(),
-                                                  k1.cpu().numpy())
-
         def native_err(jobs, pk, host):
             """Max |diff| of the kernel's rows against bsa_pedit_forward."""
             worst = 0
@@ -855,28 +1016,6 @@ def main() -> int:
                         - ref[lo:hi].astype(np.int32)).max()))
             return worst
 
-        def rand_job(rng, mlen, bw, span=None):
-            HW = bw // 2
-            pad = mlen + bw
-            seqs0 = np.full(pad, 4, np.uint8)
-            pos = np.sort(rng.choice(mlen, int(rng.integers(mlen // 2, mlen)),
-                                     replace=False))
-            seqs0[HW + pos] = rng.integers(0, 4, len(pos))
-            seqs1 = np.zeros(pad, np.uint8)
-            seqs1[HW:HW + mlen] = rng.integers(0, 5, mlen)
-            mats0 = np.zeros((4, pad), np.uint8)
-            mats1 = np.zeros((4, pad), np.uint8)
-            mats0[:, HW:HW + mlen] = rng.integers(0, 6, (4, mlen))
-            mats1[:, HW:HW + mlen] = rng.integers(0, 251, (4, mlen))
-            if span is None:
-                mbeg = int(rng.integers(0, mlen // 4))
-                mend = int(rng.integers(mbeg + 2, mlen + 1))
-            else:
-                mbeg = int(rng.integers(0, mlen - span + 1))
-                mend = mbeg + span
-            return PE.PeditJob(seqs0, seqs1, mats0, mats1, mlen, mbeg, mend,
-                               bw, HW)
-
         jobs16 = [j for js in round_jobs[:16] for j in js]
         main_jobs = [j for js in round_jobs for j in js]
         cases7 = [
@@ -887,8 +1026,9 @@ def main() -> int:
             ("(c) 32 random jobs, bw 128",
              [rand_job(rng, int(rng.integers(200, 900)), 128)
               for _ in range(32)], False),
-            (f"(d) 8 random jobs, bw {_cuda.PEDIT_MAX_BW} (the widest)",
-             [rand_job(rng, int(rng.integers(200, 600)), _cuda.PEDIT_MAX_BW)
+            (f"(d) 8 random jobs, bw {_cuda.PEDIT_REG_BW} (the widest of "
+             "the register rows)",
+             [rand_job(rng, int(rng.integers(200, 600)), _cuda.PEDIT_REG_BW)
               for _ in range(8)], True),
             ("(e) shortest jobs, mend = mbeg + 2 and + 1",
              [rand_job(rng, 60, 32, span=s) for s in (2, 1, 2, 1)], True),
@@ -933,6 +1073,388 @@ def main() -> int:
         stamp(7)
         return (windows, pedit_err, pedit_ms, pedit_plain_ms,
                 pedit_bound_ms, pedit_bound_by, main_jobs)
+
+    def phase16(edit_cpu):
+        """Wide bands, every check with tolerance 0: kernel A's planes in
+        device memory against shared memory (a) and against the plain
+        version at band 32,768 (b); align at the CLI defaults on 32 kb
+        reads (c) and with map-ont costs on 24 kb (d); kernel B past NW
+        512 and edit -W 0 on 24 kb (e); kernel C past bw 1,022 and poa -G
+        editbw=4096 (f); cat's 4x retry at band 32,768 (g)."""
+        import contextlib
+        import dataclasses
+        import io
+        t16 = time.time()
+        LIN, AFF = (0, -4, 0, 0), (-3, -2, 0, 0)
+        ONT = (-4, -2, -24, -1)
+        m_ont = O.set_score_matrix(2, -4)
+        worst = 0
+
+        def stamp16(part):
+            print(f"phase16 ({part}) done at {time.time() - t_start:.1f}s "
+                  f"({time.time() - t16:.1f}s into phase 16)")
+
+        def need(label, err, bad):
+            nonlocal worst
+            worst = max(worst, err)
+            if bad:
+                raise RuntimeError(f"phase 16 {label}: " + "; ".join(bad[:8]))
+
+        # (a) the planes in device memory against shared memory
+        for bw, L, mode in ((128, 1500, MODE_GLOBAL),
+                            (2048, 3000, MODE_OVERLAP),
+                            (16384, 1200, MODE_EXTEND)):
+            qs, ts = gen_pairs_fast(8, L, 0.10, SEED + 160 + bw % 97)
+            for pw, gaps, m_ in ((0, LIN, mtx), (1, AFF, mtx),
+                                 (2, ONT, m_ont)):
+                for emit in ("codes", "planes", "none"):
+                    if emit == "codes" and pw == 2:
+                        continue
+                    g, st = operands(qs, ts, mode, bw, gaps, emit, m_)
+                    sh = _cuda.banded8_rows(g, st, store="shared")
+                    gl = _cuda.banded8_rows(g, st, store="global")
+                    torch.cuda.synchronize()
+                    err, bad = diff_raw(g, st, gl, sh)
+                    if g.piecewise != pw:
+                        bad.append(f"piecewise {g.piecewise}, not {pw}")
+                    need(f"(a) band {bw} {emit} pw{pw}", err, bad)
+                    if bw != 2048:
+                        continue
+                    # the global store resumed in chunks of 1,024 rows
+                    reg, state, parts = None, [st.us, st.es, st.qs,
+                                               st.ub], []
+                    for c0 in range(0, g.T, 1024):
+                        n = min(1024, g.T - c0)
+                        r = _cuda.banded8_rows(g._replace(T=n), st._replace(
+                            tseq=st.tseq[:, c0:c0 + n].contiguous(),
+                            rby=st.rby[c0:c0 + n].contiguous(), us=state[0],
+                            es=state[1], qs=state[2], ub=state[3],
+                            reg=st.reg if reg is None else reg, row0=c0),
+                            store="global")
+                        parts.append(r)
+                        state = (r["fin_planes"] + [None, None])[:3] \
+                            + [r["fin_ub"]]
+                        reg = r["fin_reg"]
+                    torch.cuda.synchronize()
+                    last = parts[-1]
+                    joined = {k: (last[k] if k.startswith("fin")
+                                  or last[k] is None else
+                                  torch.cat([x[k] for x in parts], 0))
+                              for k in last}
+                    err, bad = diff_raw(g, st, joined, sh)
+                    need(f"(a) band {bw} {emit} pw{pw} resumed", err, bad)
+            print(f"phase16 (a) band {bw}: 8 x {L} bp "
+                  f"{['global', 'overlap', 'extend'][mode]}, every emit at "
+                  f"piecewise 0/1/2: planes in device memory == shared "
+                  f"memory{' (and resumed in chunks of 1,024 rows)' if bw == 2048 else ''}, "
+                  f"max_abs_err=0")
+        stamp16("a")
+
+        # (b) the kernel against its plain version at band 32,768
+        qs, ts = gen_pairs_fast(2, 32000, 0.10, SEED + 161)
+        for pw, gaps, m_ in ((1, AFF, mtx), (2, ONT, m_ont)):
+            g, st = operands(qs, ts, MODE_OVERLAP, 32768, gaps, "planes", m_)
+            g = g._replace(T=64)
+            st = st._replace(tseq=st.tseq[:, :64].contiguous(),
+                             rby=st.rby[:64].contiguous())
+            smem = _cuda.banded8_store_bytes(g.W, g.piecewise)
+            err, bad, p_ms = compare(g, st)
+            if g.piecewise != pw or smem <= _cuda.SMEM_MAX:
+                bad.append(f"piecewise {g.piecewise}, planes {smem} bytes "
+                           "a block")
+            need(f"(b) planes pw{pw}", err, bad)
+            rk = _cuda.banded8_rows(g, st)
+            rn = _cuda.banded8_rows(g._replace(emit="none"), st)
+            torch.cuda.synchronize()
+            err, bad = diff_raw(g, st, rn, {k: rk[k] for k in (
+                "fin_planes", "fin_ub", "fin_reg")})
+            need(f"(b) none pw{pw} final state", err, bad)
+            k_ms = timed_ms(lambda: _cuda.banded8_rows(g, st), 2)
+            print(f"phase16 (b) band 32768 (W=2048) pw{pw}, 2 x 32 kb, "
+                  f"first 64 rows: planes and none == plain, max_abs_err=0; "
+                  f"planes kernel {k_ms:.3f} ms = {k_ms / 64:.4f} ms per "
+                  f"row; plain on the card {p_ms:.1f} ms")
+        stamp16("b")
+
+        def wide_align(label, n_t_q, seed, m_, gaps):
+            """align_batch as the CLI calls it at its defaults (overlap,
+            band roundup(qlen, 128)), with each result checked, and a
+            one-shot scores-only forward over all rows holding the score
+            and the end."""
+            n, tl, ql = n_t_q
+            qs, ts = wide_pairs(n, tl, ql, seed)
+            bw = roundup(ql, 128)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics.reset()
+            reset_counts()
+            t0 = time.time()
+            res = P.align_batch(qs, ts, MODE_OVERLAP, bw, m_, *gaps,
+                                device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+            cnt = dict(codes=_cuda.launches_codes,
+                       planes=_cuda.launches_planes, none=_cuda.launches_none)
+            ctr = metrics.counters()
+            pw = O.get_piecewise(*gaps, bw)
+            T = roundup(tl, 128)
+            per, Tc = P._launch_plan(n, T, bw // 16, pw, pw < 2)
+            parts = ", ".join(f"{k} {c.seconds:.3f}s" for k, c in
+                              sorted(ctr.items()))
+            print(f"phase16 {label}: {n} x {tl} bp (query {ql}) at band "
+                  f"{bw} pw{pw}, T={T}: {wall:.3f}s = {n / wall:.4f} pairs/s; "
+                  f"launches {cnt}, {per} pairs and {Tc} rows a launch "
+                  f"(LAUNCH_BYTES {P.LAUNCH_BYTES}); {parts}; walk and the "
+                  f"rest {wall - sum(c.seconds for c in ctr.values()):.3f}s; "
+                  f"peak device memory {peak / 1e6:.1f} MB")
+            mm = np.asarray(m_, np.int64)
+            for b, (rs, cg) in enumerate(res):
+                bad = check_alignment(qs[b], ts[b], rs, cg, mm, gaps, pw)
+                if not (rs.mat > 0.8 * min(ql, tl) and cg):
+                    bad.append(f"implausible alignment {rs}")
+                need(f"{label} pair {b}", len(bad), bad)
+            qpad, qlens, tpad, tlens, rby, _ = P._pack_batch(qs, ts, bw)
+            us, es, q0, ub, _ = P._init_state(MODE_OVERLAP, bw, pw,
+                                              int(m_.max()), int(m_.min()),
+                                              *gaps, n)
+            fr = K.make_forward(T, bw // 16, MODE_OVERLAP, pw, *gaps,
+                                int(m_.max()), int(m_.min()),
+                                scores_only=True, device=dev)(
+                qpad, qlens, tpad, tlens, P._mtx5(m_), rby, us, es, q0, ub)
+            base = P._base_results(fr, MODE_OVERLAP, bw // 16, tlens)
+            for b, (rs, _) in enumerate(res):
+                got = (base[b].score, base[b].qe + 1, base[b].te + 1)
+                if got != (rs.score, rs.qe, rs.te):
+                    need(f"{label} pair {b}", 1, [
+                        f"one-shot scores-only (score, qe, te) {got}, the "
+                        f"result {(rs.score, rs.qe, rs.te)}"])
+            print(f"phase16 {label}: every CIGAR consumes its [qb, qe) x "
+                  f"[tb, te) and re-scores to its score; a one-shot "
+                  f"scores-only forward of {T} rows gives each score and end")
+            return per, cnt, qs, ts
+
+        # (c) align at the CLI defaults: the two-pass route at band 32,000
+        _, cnt_c, qs_c, ts_c = wide_align("(c) align defaults", WIDE_ALIGN,
+                                          SEED + 162, mtx, AFF)
+        stamp16("c")
+        # (d) map-ont costs: planes and backcal at band 24,064
+        per_d, cnt_d, qs_d, ts_d = wide_align("(d) align map-ont", WIDE_ONT,
+                                              SEED + 163, m_ont, ONT)
+        T = roundup(WIDE_ONT[1], 128)
+        groups = -(-WIDE_ONT[0] // per_d)
+        if groups < 2 or cnt_d["planes"] != groups * -(-T // P.T_CHUNK):
+            raise RuntimeError(f"phase 16 (d): {groups} launch groups and "
+                               f"{cnt_d['planes']} planes launches")
+        stamp16("d")
+
+        # (e) kernel B past 512 words, then edit -W 0 on 24 kb
+        for label, L, bw, mode in (("overlap NW 640", 20000, 20480,
+                                    MODE_OVERLAP),
+                                   ("global NW 1024", 32000, 32768,
+                                    MODE_GLOBAL)):
+            rng = np.random.default_rng(SEED + 164 + bw % 7)
+            qs = [rng.integers(0, 4, L - 13 * k).astype(np.uint8)
+                  for k in range(4)]
+            ts = [q[5000:7000 + 11 * k].copy() for k, q in enumerate(qs)]
+            g, ops = edit_operands(qs, ts, mode, bw, False)
+            err, bad, p_ms = edit_compare(g, ops)
+            need(f"(e) {label}", err, bad)
+            k_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 3)
+            print(f"phase16 (e) edit kernel {label}: 4 x {L} bp against "
+                  f"2 kb, T={g.T}: max_abs_err=0; kernel {k_ms:.3f} ms, "
+                  f"plain on the card {p_ms:.1f} ms")
+        n, tl, ql = WIDE_EDIT
+        qs, ts = wide_pairs(n, tl, ql, SEED + 165)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        res = D.edit_batch(qs, ts, MODE_GLOBAL, 0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _cuda.edit_launches
+        T = roundup(tl, 128)
+        per = D._launch_pairs(T, 752)
+        print(f"phase16 (e) edit_batch -W 0: {n} x {tl} bp (query {ql}, NW "
+              f"752, T={T}): {wall:.3f}s = {n / wall:.4f} pairs/s, "
+              f"{launches} launches of at most {per} pairs (LAUNCH_BYTES "
+              f"{D.LAUNCH_BYTES}), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+        if launches < 2 or launches != -(-n // per):
+            raise RuntimeError(f"phase 16 (e): {launches} launches")
+        for b, (rs, cg) in enumerate(res):
+            if not (cg and rs.qe == ql and rs.te == tl
+                    and 0 < rs.score < tl // 2):
+                raise RuntimeError(f"phase 16 (e) pair {b}: implausible "
+                                   f"alignment {rs}")
+        proc, t_cpu0 = edit_cpu
+        t_wait = time.time()
+        try:
+            cpu_out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise RuntimeError("phase 16 (e): the CPU edit outlived 600 s")
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 16 (e): edit --device cpu returned "
+                               f"{proc.returncode}: {err[-500:]}")
+        card = CLI._fmt_pairwise("q0", "t0", qs[0], ts[0], *res[0])
+        if card != cpu_out:
+            raise RuntimeError("phase 16 (e): pair 0 differs between the "
+                               "card and the CPU")
+        print(f"phase16 (e) pair 0: TSV == edit --device cpu (the CPU "
+              f"process ran {time.time() - t_cpu0:.1f}s beside the card, "
+              f"{time.time() - t_wait:.1f}s of it waited for here)")
+        qs_e, ts_e, per_e, cnt_e = qs, ts, per, launches
+        stamp16("e")
+
+        # (f) kernel C past bw 1,022, then poa -G editbw=4096
+        rng = np.random.default_rng(SEED + 166)
+        for bw in (1024, 1534, 4094):
+            jobs = [rand_job(rng, int(rng.integers(200, 600)), bw)
+                    for _ in range(6)]
+            pk, err, p_ms, _ = pedit_compare(jobs)
+            need(f"(f) pedit bw {bw}", err, [f"max|diff| {err}"] if err
+                 else [])
+            k_ms = timed_ms(lambda: _cuda.pedit_rows(pk), 3)
+            p_bytes, p_cells = pedit_work(jobs)
+            b_ms, b_by, b_text = bound(p_bytes, p_cells * PEDIT_OPS_PER_CELL)
+            print(f"phase16 (f) pedit bw {bw}: 6 random jobs, "
+                  f"max_abs_err=0; kernel {k_ms:.3f} ms, plain on the card "
+                  f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by} ({b_text})")
+        win = gen_poa_window(np.random.default_rng(SEED + 167))
+        with tempfile.TemporaryDirectory() as tmp:
+            fa = os.path.join(tmp, "w.fa")
+            with open(fa, "w") as f:
+                f.write("".join(f">r{i}\n{s}\n" for i, s in enumerate(win)))
+            outs = []
+            for d in ("cuda", "cpu"):
+                reset_counts()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = CLI.main(["poa", "--device", d, "-G", "editbw=4096",
+                                   fa])
+                if rc != 0:
+                    raise RuntimeError(f"phase 16 (f): poa --device {d} "
+                                       f"returned {rc}")
+                if d == "cuda":
+                    cnt_f = _cuda.pedit_launches
+                    if cnt_f < 1:
+                        raise RuntimeError("phase 16 (f): no pedit launch")
+                outs.append(buf.getvalue())
+        if outs[0] != outs[1] or outs[0].count("\n") < 20:
+            raise RuntimeError("phase 16 (f): poa -G editbw=4096 differs "
+                               "between cuda and cpu")
+        print(f"phase16 (f) poa -G editbw=4096 (pedit band 2048): --device "
+              f"cuda == --device cpu ({outs[0].count(chr(10))} lines; "
+              f"{cnt_f} pedit launches on the card)")
+        stamp16("f")
+
+        # (g) cat: a join that needs the 4x retry at band 32,768
+        from bsalign_tpu_torch.poa import cat as CAT
+        text, expect = gen_wide_cat(SEED + 168)
+        calls = []
+        real = CAT.align_batch
+
+        def recording(qs_, ts_, *a, **k):
+            out = real(qs_, ts_, *a, **k)
+            rs, cg = out[0]   # cat moves rs to the pieces' coordinates
+            calls.append((qs_[0], ts_[0], a[1],
+                           (dataclasses.replace(rs), list(cg))))
+            return out
+        with tempfile.TemporaryDirectory() as tmp:
+            fa = os.path.join(tmp, "pieces.fa")
+            with open(fa, "w") as f:
+                f.write(text)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            CAT.align_batch = recording
+            try:
+                t0 = time.time()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = CLI.main(["cat", "--device", "cuda", fa])
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            finally:
+                CAT.align_batch = real
+        if rc != 0:
+            raise RuntimeError(f"phase 16 (g): cat returned {rc}")
+        seq = "".join(buf.getvalue().splitlines()[1:])
+        bands = [c[2] for c in calls]
+        print(f"phase16 (g) cat of 2 pieces of {WIDE_CAT[0]} bp, stated "
+              f"overlap {WIDE_CAT[2]}, real {WIDE_CAT[1]}: {wall:.3f}s, "
+              f"joins at bands {bands}, launches codes "
+              f"{_cuda.launches_codes} none {_cuda.launches_none}; consensus "
+              f"{len(seq)} bp ({expect} expected); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+        if bands != [roundup(WIDE_CAT[2], 16), roundup(4 * WIDE_CAT[2], 16)]:
+            raise RuntimeError(f"phase 16 (g): joins at bands {bands}")
+        if "N" in seq or abs(len(seq) - expect) > 0.005 * expect:
+            raise RuntimeError(f"phase 16 (g): implausible consensus of "
+                               f"{len(seq)} bp")
+        q, t, _, (rs, cg) = calls[-1]
+        bad = check_alignment(q, t, rs, cg, np.asarray(mtx, np.int64), AFF,
+                              1)
+        need("(g) the retried join", len(bad), bad)
+        print(f"phase16 (g) the retried join's CIGAR consumes its [qb, qe) "
+              f"x [tb, te) and re-scores to its score {rs.score}")
+        stamp16("g")
+
+        # (h) the wide instantiations at their main-path launch shapes:
+        # time (one launch after a warm-up) and bound; launches of (c)-(g)
+        def a_launch(label, qs, ts, bw, gaps, m_, emit, ops, launches):
+            g, st = operands(qs, ts, MODE_OVERLAP, bw, gaps, emit, m_)
+            g = g._replace(T=P.T_CHUNK)
+            st = st._replace(tseq=st.tseq[:, :P.T_CHUNK].contiguous(),
+                             rby=st.rby[:P.T_CHUNK].contiguous())
+            ms = timed_ms(lambda: _cuda.banded8_rows(g, st), 1)
+            nb, cells = banded8_work(g, st, _cuda.banded8_rows(g, st))
+            b_ms, b_by, b_text = bound(nb, cells * ops)
+            print(f"phase16 (h) kernel A {label}: {len(qs)} pairs x "
+                  f"{g.T} rows at band {bw} (W={g.W}, pw{g.piecewise}, planes "
+                  f"in device memory): {ms:.3f} ms = {ms / g.T:.4f} ms per "
+                  f"row, {cells / (ms / 1e3):.4g} cells/s; launches {launches}; "
+                  f"bound {b_ms:.4f} ms by {b_by} ({b_text})")
+        bw_c = roundup(WIDE_ALIGN[2], 128)
+        a_launch("none, (c)'s chunk", qs_c, ts_c, bw_c, AFF, mtx, "none",
+                 BANDED8_NONE_OPS_PER_CELL, f"{cnt_c['none']} in (c)")
+        a_launch("codes, (c)'s chunk", qs_c, ts_c, bw_c, AFF, mtx, "codes",
+                 BANDED8_OPS_PER_CELL, f"{cnt_c['codes']} in (c)")
+        a_launch("planes, (d)'s chunk", qs_d[:per_d], ts_d[:per_d],
+                 roundup(WIDE_ONT[2], 128), ONT, m_ont, "planes",
+                 BANDED8_PLANES_OPS_PER_CELL, f"{cnt_d['planes']} in (d)")
+        g, ops = edit_operands(qs_e[:per_e], ts_e[:per_e], MODE_GLOBAL,
+                               32 * 752, False)
+        ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 1)
+        nrows = int(ops.tlen.sum())
+        b_ms, b_by, b_text = bound(edit_bytes(g, ops),
+                                   nrows * g.NW * EDIT_OPS_PER_WORD_ROW)
+        print(f"phase16 (h) kernel B segmented, (e)'s launch: {per_e} pairs "
+              f"x {g.T} rows at NW {g.NW}: {ms:.3f} ms = "
+              f"{ms / g.T * 1e3:.3f} us per row, "
+              f"{nrows * g.bw / (ms / 1e3):.4g} cells/s; launches {cnt_e} in "
+              f"(e); bound {b_ms:.4f} ms by {b_by} ({b_text})")
+        del ops
+        stamp16("h")
+        stamp(16)
+        return worst
+
+
+    if "--wide" in sys.argv[1:]:
+        # phase 16 alone
+        try:
+            phase16(edit_cpu)
+        except RuntimeError as e:
+            return fail(str(e))
+        err = ptxas_check(ptxas_wait)
+        if err:
+            return fail(err)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if "--kernels" in sys.argv[1:]:
         # kernels B and C alone: phase 5, the edit kernel at its main-path
@@ -1760,6 +2282,7 @@ def main() -> int:
         phase13()
         phase14(main_jobs)
         phase15()
+        phase16(edit_cpu)
     except RuntimeError as e:
         return fail(str(e))
 

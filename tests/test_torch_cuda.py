@@ -416,14 +416,41 @@ def test_pedit_kernel_matches_plain(kind, cuda_device):
 
 
 def test_pedit_kernel_refuses_wide_band_and_cpu(cuda_device):
+    """A band past the narrow kernel's 1,022 cells (bw 1,024) runs the wide
+    row and equals the plain version; CPU tensors are refused."""
     from bsalign_tpu_torch.ops import _cuda
     from bsalign_tpu_torch.ops import pedit as PE
     from .test_torch_pedit import _mk_job
     rng = np.random.default_rng(2)
-    with pytest.raises(NotImplementedError, match="limit"):
-        _cuda.pedit_rows(PE.pack_jobs([_mk_job(rng, 40, 1024)], cuda_device))
+    pk = PE.pack_jobs([_mk_job(rng, 40, 1024)], cuda_device)
+    k0, k1 = _cuda.pedit_rows(pk)
+    p0, p1 = PE.forward_plain(pk)
+    torch.cuda.synchronize()
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         _cuda.pedit_rows(PE.pack_jobs([_mk_job(rng, 40, 32)], "cpu"))
+
+
+# the wide pedit row (bands past 1,022 cells) against the plain version,
+# into buffers of 0xA5, jobs with mbeg > 0 and mend < mlen
+@pytest.mark.parametrize("bw", [1024, 2046])
+def test_pedit_wide_kernel_matches_plain(bw, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.ops import pedit as PE
+    from .test_torch_pedit import _mk_job
+    rng = np.random.default_rng(200 + bw)
+    jobs = [_mk_job(rng, int(rng.integers(20, 90)), bw) for _ in range(3)]
+    jobs[0].mbeg = max(jobs[0].mbeg, 2)
+    jobs[0].mend = max(jobs[0].mbeg + 1, min(jobs[0].mend, jobs[0].mlen - 3))
+    pk = PE.pack_jobs(jobs, cuda_device)
+    out = tuple(torch.full((pk.total,), 0xA5, dtype=torch.uint8,
+                           device=cuda_device) for _ in range(2))
+    before = _cuda.pedit_launches
+    k0, k1 = _cuda.pedit_rows(pk, out=out)
+    p0, p1 = PE.forward_plain(pk)
+    torch.cuda.synchronize()
+    assert _cuda.pedit_launches == before + 1
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
 
 
 # every K boundary of the pedit kernel's cells per lane (1, 2, 4, 32)
@@ -467,6 +494,68 @@ def test_edit_kernel_band_widths(nw, mode, cuda_device):
     assert int(ops.movxs[live].max()) > 0
     assert bool((ops.rbegs[live] % 2 == 1).any())
     _assert_edit_same(g, ops)
+
+
+# the segmented edit row (bands past 512 words) against the plain version,
+# with banded trajectories (rows with movx > 0), and at NW 1,024 also with
+# its state rows in device memory (the shared limit forced down)
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
+@pytest.mark.parametrize("nw", [513, 640, 1024])
+def test_edit_segmented_kernel_matches_plain(nw, mode, cuda_device,
+                                             monkeypatch):
+    from bsalign_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(11 * nw + mode)
+    bw = 32 * nw
+    qs = [rng.integers(0, 4, bw + 700 + 17 * k).astype(np.uint8)
+          for k in range(2)]
+    ts = [rng.integers(0, 4, 150 - 11 * k).astype(np.uint8) for k in range(2)]
+    g, ops = _edit_operands(qs, ts, mode, bw, True, cuda_device)
+    live = torch.arange(g.T, device=cuda_device).view(-1, 1) < ops.tlen
+    if mode != MODE_OVERLAP:
+        assert int(ops.movxs[live].max()) > 0
+    _assert_edit_same(g, ops)
+    if nw == 1024:
+        monkeypatch.setattr(_cuda, "SMEM_MAX", 16 * nw - 1)
+        _assert_edit_same(g, ops)
+
+
+# kernel A with its planes in device memory against the shared store, in
+# every emit, at W 1, 3, 9 and 128 (the last resumed in chunks too)
+STORE_CASES = [(1, MODE_GLOBAL), (3, MODE_OVERLAP), (9, MODE_EXTEND),
+               (128, MODE_OVERLAP)]
+
+
+@pytest.mark.parametrize("emit", ["codes", "planes", "none"])
+@pytest.mark.parametrize("case", range(len(STORE_CASES)))
+def test_kernel_global_store_matches_shared(case, emit, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    W, mode = STORE_CASES[case]
+    gaps = {"codes": AFFINE, "planes": SHORT_TWO_PIECE, "none": LINEAR}[emit]
+    lens = (2400, 2600, 2100) if W == 128 else (150, 230, 300)
+    qs, ts = _pairs(lens, 0.12, 90 + case)
+    qs[-1] = qs[-1][:37]
+    pw, T, args = _operands(qs, ts, mode, gaps, W)
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, emit)
+    st = K.state_from_numpy(*args, T=T, device=cuda_device)
+    shared = _cuda.banded8_rows(g, st, store="shared")
+    _assert_same(_cuda.banded8_rows(g, st, store="global"), shared)
+    if W != 128:
+        return
+    (qpad, qlens, tpad, tlens, mtx5, rby), state = args[:6], list(args[6:])
+    reg, parts = None, []
+    for c0 in range(0, T, 1024):
+        n = min(1024, T - c0)
+        stc = K.state_from_numpy(qpad, qlens, tpad[:, c0:c0 + n], tlens,
+                                 mtx5, rby[c0:c0 + n], *state, reg, c0, T=n,
+                                 device=cuda_device)
+        r = _cuda.banded8_rows(g._replace(T=n), stc, store="global")
+        parts.append(r)
+        state = (r["fin_planes"] + [None, None])[:3] + [r["fin_ub"]]
+        reg = r["fin_reg"]
+    torch.cuda.synchronize()
+    joined = {k: (r[k] if k.startswith("fin") or r[k] is None
+                  else torch.cat([p[k] for p in parts], 0)) for k in r}
+    _assert_same(joined, shared)
 
 
 def test_edit_kernel_long_query_reads_device_memory(cuda_device):
