@@ -17,6 +17,9 @@
 // (init_* and init_reg), so long targets run in row chunks. The plain
 // PyTorch version of the same function is
 // bsalign_tpu_torch/ops/banded8.py::forward_plain; the two agree bit for bit.
+// This is the narrow row, launched for bands below WIDE_W stripes
+// (ops/_cuda.py); banded8_wide.cu computes the same function for wider
+// bands with a block of threads a pair.
 //
 // What bounds it on this card: neither bytes nor operations but latency.
 // Each pair is a serial chain of T rows, and each row a chain of W stripes
@@ -78,97 +81,11 @@
 // Rows at and past a pair's tlen write codes, planes and anchors 0 and
 // begs = the frozen rbeg.
 
-#include <cstdint>
 #include <type_traits>
-#include <cuda_runtime.h>
+
+#include "banded8_common.cuh"
 
 namespace {
-
-constexpr int WS = 16;
-constexpr int G = 8;   // stripes per group: one 8-byte word per lane and plane
-constexpr int MIN8 = -63;
-constexpr int MAX8 = 63;
-constexpr unsigned MIN8X4 = 0xC1C1C1C1u;   // MIN8 in each byte
-constexpr int SCORE_MIN = -(0x7FFFFFFF >> 2);
-constexpr int NEGK = -(1 << 30);
-// every shuffle runs with the whole warp: its two pairs take the same path
-constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr int EMIT_CODES = 0, EMIT_PLANES = 1, EMIT_NONE = 2;
-// phases of the optional cycle split: band move (with getscore), row head,
-// pass 1, F-loop(s), pass 2 with its tail, steering with best end, emit
-constexpr int NPHASE = 7;
-
-typedef unsigned long long u64;
-
-struct Params {
-    const uint8_t *qb;
-    const int *tseq, *qlen, *tlen, *rbz, *rby, *mtx5;
-    const int *init_us, *init_es, *init_qs, *init_ub, *init_reg;
-    int *codes;
-    int8_t *us_o, *es_o, *qs_o;
-    int *ubegs, *begs, *fin_us, *fin_es, *fin_qs, *fin_ub, *fin_reg;
-    long long *cycles;   // [NPHASE, B] cycle split, or null
-    int8_t *gs;          // GS: the planes' scratch, 2 * BUF bytes per slot
-    int B, QPU, T, row0, W, gapo1, gape1, gapo2, gape2, d_oh, c_oh, ppb;
-};
-
-// sat8(a + b) = min(max(a + b, -128), 127): one DPX add-min, one max
-__device__ __forceinline__ int adds8(int a, int b) {
-    return max(__viaddmin_s32(a, b, 127), -128);
-}
-__device__ __forceinline__ int max3(int a, int b, int c) {
-    return __vimax3_s32(a, b, c);
-}
-__device__ __forceinline__ int wrap8(int v) { return (int)(int8_t)v; }
-// signed byte k of a plane word
-__device__ __forceinline__ int sbyte(u64 w, int k) {
-    return (int)(int8_t)(w >> (8 * k));
-}
-__device__ __forceinline__ u64 put_byte(int v, int k) {
-    return (u64)(uint8_t)v << (8 * k);
-}
-__device__ __forceinline__ u64 lds64(const int8_t *a) {
-    return *reinterpret_cast<const u64 *>(a);
-}
-__device__ __forceinline__ void sts64(int8_t *a, u64 w) {
-    *reinterpret_cast<u64 *>(a) = w;
-}
-// sum of the signed bytes 0..k of w (k in 0..7)
-__device__ __forceinline__ int bytesum(u64 w, int k) {
-    const u64 ones = 0x0101010101010101ull;
-    const u64 m = k >= 7 ? ones : ones & ((1ull << (8 * (k + 1))) - 1);
-    return __dp4a((int)(unsigned)(w >> 32), (int)(unsigned)(m >> 32),
-                  __dp4a((int)(unsigned)w, (int)(unsigned)m, 0));
-}
-// n / W for 0 <= n < 2^32 / W, with mw = 0xFFFFFFFF / W + 1 (0 for W = 1)
-__device__ __forceinline__ int div_w(int n, unsigned mw) {
-    return mw ? (int)__umulhi((unsigned)n, mw) : n;
-}
-
-// A lane's query window of 9 codes at byte offset a: bytes a..a+3 in lo,
-// a+4..a+7 in mid, a+8 in the low byte of top (three aligned word loads
-// through the read-only path).
-struct QWin {
-    unsigned lo, mid, top;
-};
-__device__ __forceinline__ QWin qwin(const uint8_t *__restrict__ qrow, int a) {
-    const unsigned *w = reinterpret_cast<const unsigned *>(qrow + (a & ~3));
-    const unsigned w0 = __ldg(w), w1 = __ldg(w + 1), w2 = __ldg(w + 2);
-    const unsigned sh = (unsigned)(a & 3) * 8;
-    return {__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
-            w2 >> sh};
-}
-// score of window code k (0..8): S holds the row's scores of codes 0..3
-// as bytes; codes of 4 and above select MIN8
-__device__ __forceinline__ int qscore(const QWin &q, unsigned S, int k) {
-    const unsigned w = k < 4 ? q.lo : (k < 8 ? q.mid : q.top);
-    return (int)(int8_t)__byte_perm(S, MIN8X4, w >> (8 * (k & 3)));
-}
-
-// nibbles 0..n-1 of a word set (n <= 0: none; n >= 8: all)
-__device__ __forceinline__ unsigned nibbles_below(int n) {
-    return n <= 0 ? 0u : (n >= G ? ~0u : (1u << (4 * n)) - 1);
-}
 
 // Sum of lane bytes 0..x of the plane whose lane starts at lb (group 0
 // given as w0).
@@ -209,11 +126,6 @@ __device__ __forceinline__ u64 band_shift(u64 w, int j, int cyc, int mv,
     const u64 keep = W == G ? ~0ull : (1ull << (8 * W)) - 1;
     return (lo | hi) & keep;
 }
-// bytes k >= n of a word set (n <= 0: all; n >= 8: none)
-__device__ __forceinline__ u64 bytes_from(int n) {
-    return n <= 0 ? ~0ull : (n >= G ? 0ull : ~0ull << (8 * n));
-}
-
 // Active F-loops over lane heads (bsalign.h:2639-2652) for N gap states
 // (f, and g at piecewise 2) side by side: f[n] holds lane j's pass-1 value
 // at the end of its block and becomes the value entering lane j, with the
@@ -903,10 +815,12 @@ extern "C" int bsa_banded8_rows(
     p.fin_qs = (int *)fin_qs; p.fin_ub = (int *)fin_ub;
     p.fin_reg = (int *)fin_reg;
     p.cycles = (long long *)cycles;
+    p.replays = nullptr;
     p.gs = (int8_t *)gs;
     p.B = B; p.QPU = QPU; p.T = T; p.row0 = row0; p.W = W;
     p.gapo1 = gapo1; p.gape1 = gape1; p.gapo2 = gapo2; p.gape2 = gape2;
     p.d_oh = d_oh; p.c_oh = c_oh; p.ppb = pairs_per_block;
+    p.K = p.R = 0;
     cudaStream_t s = (cudaStream_t)stream;
     if (piecewise == 0) return (int)launch_mode<0>(p, mode_type, emit, s);
     if (piecewise == 1) return (int)launch_mode<1>(p, mode_type, emit, s);

@@ -28,6 +28,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 PAIRS_PER_BLOCK = 2   # one warp per block: 256 pairs spread over 128 SMs
 SMEM_MAX = 227 * 1024   # shared memory one block may take on the H100
+# kernel A: bands of WIDE_W stripes and more run the wide row
+# (csrc/banded8_wide.cu, one block of 16 lanes x K threads a pair), below it
+# the narrow row (csrc/banded8.cu, one half-warp a pair)
+WIDE_W = 32
+WIDE_SCALAR_BYTES = 4 * 1208   # the wide row's shared scalars (NSCALAR)
 
 # edit: bands past 512 words (16,384 bits) run the segmented row, its two
 # state rows (16 bytes a word) in shared memory beside the staged Eq planes
@@ -40,10 +45,14 @@ EDIT_EQ_SMEM_MAX = 64 * 1024
 PEDIT_REG_BW = 1022
 PEDIT_MAX_BW = 32510
 
-# kernel launches of bsa_banded8_rows in this process, by emit
+# kernel launches of bsa_banded8_rows (the narrow row) and of
+# bsa_banded8_wide_rows (the wide row) in this process, by emit
 launches_codes = 0
 launches_planes = 0
 launches_none = 0
+launches_wide_codes = 0
+launches_wide_planes = 0
+launches_wide_none = 0
 edit_launches = 0     # kernel launches of bsa_edit_rows in this process
 pedit_launches = 0    # kernel launches of bsa_pedit_rows in this process
 build_seconds = 0.0
@@ -68,11 +77,15 @@ def lib():
         if _LIB is None:
             srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
             path, build_seconds = build_shared(
-                "kernels", srcs, [_nvcc()] + NVCC_FLAGS, [_nvcc(), "-shared"])
+                "kernels", srcs, [_nvcc()] + NVCC_FLAGS, [_nvcc(), "-shared"],
+                deps=sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
             so = ctypes.CDLL(path)
             so.bsa_banded8_rows.argtypes = \
                 [ctypes.c_void_p] * 25 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
             so.bsa_banded8_rows.restype = ctypes.c_int
+            so.bsa_banded8_wide_rows.argtypes = \
+                [ctypes.c_void_p] * 26 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+            so.bsa_banded8_wide_rows.restype = ctypes.c_int
             so.bsa_edit_rows.argtypes = \
                 [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             so.bsa_edit_rows.restype = ctypes.c_int
@@ -96,6 +109,30 @@ EMIT_CODE = {"codes": 0, "planes": 1, "none": 2}
 SPLIT_PHASES = ("move", "head", "pass1", "floop", "pass2", "steer", "emit")
 
 
+def wide_lanes(W):
+    """Threads a lane of the wide kernel: the smallest power of two from 2
+    (whole warps) to 32 (one warp a lane, from W 129 on) whose runs of 8
+    stripes cover the lane."""
+    return min(32, max(2, 1 << (-(-W // 8) - 1).bit_length()))
+
+
+def wide_geometry(W, K):
+    """(R, n): each of a lane's K threads owns a run of R stripes, a
+    multiple of 8 and an odd number of 8-byte words (the lane's threads
+    then read shared memory without bank conflicts); n threads of the lane
+    have stripes."""
+    words = -(-W // 8)
+    R = 8 * (-(-words // K) | 1)
+    return R, -(-W // R)
+
+
+def banded8_wide_store_bytes(W, piecewise):
+    """Bytes of the wide kernel's plane store for its one pair: two
+    buffers of piecewise + 1 planes in natural band order, each the band
+    rounded up to 8 bytes plus one word that unaligned reads may touch."""
+    return 2 * (piecewise + 1) * (-(-W * WS // 8) * 8 + 8)
+
+
 def banded8_store_bytes(W, piecewise, pairs=PAIRS_PER_BLOCK):
     """Bytes of the banded-8 kernel's plane store for `pairs` pairs: two
     buffers of piecewise + 1 planes of 16 lanes, each lane's W stripes
@@ -103,19 +140,26 @@ def banded8_store_bytes(W, piecewise, pairs=PAIRS_PER_BLOCK):
     return pairs * 2 * (piecewise + 1) * WS * 8 * (-(-W // 8) | 1)
 
 
-def banded8_rows(g, st, *, cycle_split=False, store=None):
-    """Launch the banded-8 kernel for geometry g (its emit: codes, planes or
-    none) on state st (a banded8.State on one CUDA device, resumed at
-    st.row0 from st.reg). Returns the raw outputs as device tensors, with
-    the keys of banded8.forward_plain. With cycle_split, out["cycles"] is
-    an int64 [len(SPLIT_PHASES), B] tensor: each pair's SM clock cycles per
-    phase, summed over its rows below tlen (the main paths never ask).
+def banded8_rows(g, st, *, cycle_split=False, store=None, design=None,
+                 count_replays=False):
+    """Launch kernel A for geometry g (its emit: codes, planes or none) on
+    state st (a banded8.State on one CUDA device, resumed at st.row0 from
+    st.reg). Returns the raw outputs as device tensors, with the keys of
+    banded8.forward_plain. With cycle_split, out["cycles"] is an int64
+    [len(SPLIT_PHASES), B] tensor: each pair's SM clock cycles per phase,
+    summed over its rows below tlen (the main paths never ask).
+
+    `design` picks the row: None (every main path) the wide row for
+    W >= WIDE_W and the narrow row below; "narrow" or "wide" forces one
+    (tests hold the two against each other). With count_replays (the wide
+    row only), out["replays"] is the int32 [B] count of each pair's rows
+    whose scan was proven wrong and replayed.
 
     `store` says where the band's planes live: None (every main path)
     takes shared memory when a block's planes fit SMEM_MAX and else a
-    scratch in device memory; "shared" or "global" forces one (tests hold
-    the two against each other)."""
+    scratch in device memory; "shared" or "global" forces one."""
     global launches_codes, launches_planes, launches_none
+    global launches_wide_codes, launches_wide_planes, launches_wide_none
     pw = g.piecewise
     if g.emit not in EMIT_CODE or pw not in (0, 1, 2) \
             or (g.emit == "codes" and pw == 2):
@@ -123,6 +167,13 @@ def banded8_rows(g, st, *, cycle_split=False, store=None):
                                   f"{g.emit!r} at piecewise {pw}")
     B, QP = st.qpad.shape
     T, W, BW = g.T, g.W, g.BW
+    if design is None:
+        design = "wide" if W >= WIDE_W else "narrow"
+    if design not in ("narrow", "wide") or (count_replays
+                                            and design != "wide"):
+        raise ValueError(f"banded8 kernel: design {design!r}, "
+                         f"count_replays {count_replays}")
+    wide = design == "wide"
     dev = st.qpad.device
     _check("qpad", st.qpad, (B, QP))
     _check("tseq", st.tseq, (B, T))
@@ -137,13 +188,15 @@ def banded8_rows(g, st, *, cycle_split=False, store=None):
         _check("es", st.es, (W, WS, B))
     if pw == 2:
         _check("qs", st.qs, (W, WS, B))
-    smem = banded8_store_bytes(W, pw)
+    planes = banded8_wide_store_bytes(W, pw) if wide \
+        else banded8_store_bytes(W, pw)
+    smem = planes + (WIDE_SCALAR_BYTES if wide else 0)
     if store is None:
         store = "shared" if smem <= SMEM_MAX else "global"
     if store not in ("shared", "global") or (store == "shared"
                                              and smem > SMEM_MAX):
         raise ValueError(f"banded8 kernel: store {store!r} at band {BW} "
-                         f"({smem} bytes of planes a block)")
+                         f"({smem} bytes of shared memory a block)")
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -160,37 +213,57 @@ def banded8_rows(g, st, *, cycle_split=False, store=None):
         out["qs"] = empty(T, BW, B, dtype=torch.int8) if pw == 2 else None
         out["ubegs"] = empty(T, WS + 1, B)
     mt = mode_type(g.mode)
+    mt = 0 if mt == MODE_GLOBAL else (1 if mt == MODE_OVERLAP else 2)
     d_oh, c_oh = g.overhang()
     qb = query_bytes(st.qpad)
     fin = out["fin_planes"] + [None] * (2 - pw)
     cycles = torch.zeros(len(SPLIT_PHASES), B, dtype=torch.int64,
                          device=dev) if cycle_split else None
-    # one slot per pair of the grid's blocks, a missing last pair's too
-    slots = -(-B // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK
-    gs = empty(banded8_store_bytes(W, pw, slots), dtype=torch.int8) \
-        if store == "global" else None
+    replays = torch.zeros(B, dtype=torch.int32, device=dev) \
+        if count_replays else None
+    if wide:   # one slot a pair
+        gs = empty(planes * B, dtype=torch.int8) if store == "global" \
+            else None
+    else:      # one slot per pair of the grid's blocks, a missing one's too
+        slots = -(-B // PAIRS_PER_BLOCK) * PAIRS_PER_BLOCK
+        gs = empty(banded8_store_bytes(W, pw, slots), dtype=torch.int8) \
+            if store == "global" else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    operands = (
+        ptr(qb), ptr(st.tseq), ptr(st.qlen), ptr(st.tlen), ptr(st.rbz),
+        ptr(st.rby), ptr(st.mtx5), ptr(st.us),
+        ptr(st.es if pw >= 1 else None), ptr(st.qs if pw == 2 else None),
+        ptr(st.ub), ptr(st.reg),
+        *(ptr(out.get(k)) for k in ("codes", "us", "es", "qs", "ubegs",
+                                    "begs")),
+        *(ptr(t) for t in fin), ptr(out["fin_ub"]), ptr(out["fin_reg"]),
+        ptr(cycles))
+    shape = (B, qb.shape[1], T, int(st.row0), W, mt, pw, EMIT_CODE[g.emit],
+             g.gapo1, g.gape1, g.gapo2, g.gape2, d_oh, c_oh)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib().bsa_banded8_rows(
-            ptr(qb), ptr(st.tseq), ptr(st.qlen), ptr(st.tlen),
-            ptr(st.rbz), ptr(st.rby), ptr(st.mtx5), ptr(st.us),
-            ptr(st.es if pw >= 1 else None), ptr(st.qs if pw == 2 else None),
-            ptr(st.ub), ptr(st.reg),
-            *(ptr(out.get(k)) for k in ("codes", "us", "es", "qs", "ubegs",
-                                        "begs")),
-            *(ptr(t) for t in fin), ptr(out["fin_ub"]), ptr(out["fin_reg"]),
-            ptr(cycles), ptr(gs), B, qb.shape[1], T,
-            int(st.row0), W, 0 if mt == MODE_GLOBAL else
-            (1 if mt == MODE_OVERLAP else 2), pw, EMIT_CODE[g.emit],
-            g.gapo1, g.gape1, g.gapo2, g.gape2, d_oh, c_oh, PAIRS_PER_BLOCK,
-            stream)
+        if wide:
+            K = wide_lanes(W)
+            rc = lib().bsa_banded8_wide_rows(
+                *operands, ptr(replays), ptr(gs), *shape, K,
+                wide_geometry(W, K)[0], stream)
+        else:
+            rc = lib().bsa_banded8_rows(*operands, ptr(gs), *shape,
+                                        PAIRS_PER_BLOCK, stream)
     if rc != 0:
-        raise RuntimeError(f"banded8 kernel launch failed: CUDA error {rc}")
-    if g.emit == "codes":
+        raise RuntimeError(f"banded8 {design} kernel launch failed: CUDA "
+                           f"error {rc}")
+    if wide:
+        if g.emit == "codes":
+            launches_wide_codes += 1
+        elif g.emit == "planes":
+            launches_wide_planes += 1
+        else:
+            launches_wide_none += 1
+    elif g.emit == "codes":
         launches_codes += 1
     elif g.emit == "planes":
         launches_planes += 1
@@ -198,6 +271,8 @@ def banded8_rows(g, st, *, cycle_split=False, store=None):
         launches_none += 1
     if cycle_split:
         out["cycles"] = cycles
+    if count_replays:
+        out["replays"] = replays
     return out
 
 

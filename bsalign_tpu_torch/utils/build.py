@@ -24,15 +24,17 @@ class BuildError(RuntimeError):
 
 
 def build_shared(name: str, sources: Sequence[str], compile_cmd: List[str],
-                 link_cmd: List[str]) -> Tuple[str, float]:
+                 link_cmd: List[str], deps: Sequence[str] = ()
+                 ) -> Tuple[str, float]:
     """Build `sources` into one shared library unless a library built from
     the same sources and commands exists: each source is compiled to an
     object by `compile_cmd + ["-c", src, "-o", obj]`, one compiler process
     per source, all started together, and `link_cmd + objects + ["-o",
-    out]` links them. Returns the library's path and the seconds spent
-    building (0.0 when cached)."""
+    out]` links them. `deps` (headers the sources include) count in the
+    hash. Returns the library's path and the seconds spent building (0.0
+    when cached)."""
     h = hashlib.sha256(" ".join(compile_cmd + link_cmd).encode())
-    for src in sources:
+    for src in list(sources) + list(deps):
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

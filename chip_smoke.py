@@ -3,25 +3,30 @@
 
     python3 chip_smoke.py            # every phase, as below
     python3 chip_smoke.py --split    # phase 1, then kernel A's row step
-                                     # alone at the three shapes below
+                                     # alone at the three shapes below,
+                                     # and both of its rows at W 64, 128
+                                     # and 2,000
     python3 chip_smoke.py --kernels  # phase 1, then kernels B and C alone:
                                      # phase 5, the edit kernel at its
                                      # main-path shape (phase 6's first
                                      # part) and phase 7, each kernel's
                                      # time beside its plain version's
-    python3 chip_smoke.py --wide     # phase 1, then phase 16 alone
+    python3 chip_smoke.py --wide     # phase 1, then phases 16 and 17
 
 Phases, in order; any failure exits non-zero:
 
 1. Environment: the card's name and power limit, then the build of the
-   CUDA kernels (csrc/*.cu: banded-8, edit and pedit, one nvcc per source
-   started together, sm_90a, linked into one library) and of the host
-   library (g++: the codes walker and the POA engine), with their build
-   seconds. Beside it, nvcc -Xptxas -v on each source: the registers,
-   stack and spills of the main paths' instantiations (banded-8 codes,
-   none and planes; edit at K 2, global; pedit at K 1) and the range over
-   every instantiation are printed at the end, and a spill in a main
-   path's instantiation fails the run.
+   CUDA kernels (csrc/*.cu: banded-8's narrow and wide rows, edit and
+   pedit, one nvcc per source started together, sm_90a, linked into one
+   library) and of the host library (g++: the codes walker and the POA
+   engine), with their build seconds. Beside it, nvcc -Xptxas -v on each
+   source: the registers, stack and spills of the main paths'
+   instantiations (banded-8 codes, none and planes in both rows; edit at
+   K 2, global; pedit at K 1) and the range over every instantiation are
+   printed at the end, and a spill in a main path's instantiation fails
+   the run. Kernel A runs its wide row (csrc/banded8_wide.cu) from
+   WIDE_W = 32 stripes (band 512) on and its narrow row below, so phase
+   2's band 640 case, phase 4, 12 and 16 run the wide row.
 2. Banded-8 kernel against its plain PyTorch version, both on the card, on
    seeded pairs at 10% error (64 x 1 kb at band 128, 8 x 600 bp at band
    640, a full reset at band 16): codes, begs, score/qe/te and the final
@@ -35,7 +40,8 @@ Phases, in order; any failure exits non-zero:
    cells/s and end-to-end pairs/s, and the kernel's cycle split at the
    launch shape (see below).
 4. Band 2048: 16 pairs x 2 kb at the CLI defaults (overlap, band
-   roundup(qlen, 128)), checked against the CPU path on 2 pairs.
+   roundup(qlen, 128)), checked against the CPU path on 2 pairs; the wide
+   row must launch, and both rows are timed at the band-2048 launch.
 5. Edit kernel against its plain PyTorch version, both on the card, on
    seeded pairs at 10% error: pm, pp and sbeg on rows below each pair's
    tlen, and the final planes, smin, ry, final sbeg and global score, with
@@ -123,12 +129,14 @@ Phases, in order; any failure exits non-zero:
    `edit --device cpu` on one pair, runs in a process of its own from the
    end of phase 1 on):
    (a) kernel A with its planes in device memory against shared memory
-   (the store forced both ways) at bands 128, 2,048 and 16,384 on 8 pairs
-   at 10% error, every emit at piecewise 0/1/2 (codes at 0/1), each output
-   and the final state, at band 2,048 also resumed in chunks of 1,024 rows;
-   (b) kernel A against its plain version at band 32,768 (W 2,048, planes
-   in device memory), piecewise 1 and 2, 2 pairs of 32 kb, the first 64
-   rows: planes and none emits and the final state, with both times;
+   (the store forced both ways), in the narrow and the wide row, at bands
+   128, 2,048 and 16,384 on 8 pairs at 10% error, every emit at piecewise
+   0/1/2 (codes at 0/1), each output and the final state, at band 2,048
+   also resumed in chunks of 1,024 rows; (b) kernel A's wide row against
+   its plain version and against the narrow row (planes in device
+   memory) at band 32,768 (W 2,048), piecewise 1 and 2, 2 pairs of 32 kb,
+   the first 64 rows: planes and none emits and the final state, with
+   the times;
    (c) `align_batch` as the CLI calls it at its defaults (overlap, band
    roundup(qlen, 128) = 32,000, -M 2 -X 6 -O 3 -E 2) on 8 pairs of 33 kb
    targets at 10% error (the two-pass route): each CIGAR consumes exactly
@@ -146,7 +154,18 @@ Phases, in order; any failure exits non-zero:
    (g) `cat` of two 40 kb pieces overlapping by 16,384 whose second states
    overlap=8192: the join runs at band 8,192, then its 4x retry at band
    32,768 on the card; the consensus has the expected length within 0.5%
-   and the retried join's CIGAR passes (c)'s checks.
+   and the retried join's CIGAR passes (c)'s checks; (h) kernel A's wide
+   and narrow rows at (c)'s and (d)'s launch shapes (4,096 rows), kernel
+   B's segmented row at (e)'s, with their bounds and launches.
+17. Kernel A's two rows, tolerance 0 (also run by --wide): (a) the wide
+   row against the narrow row at bands 512, 2,048, 16,384 and 32,000 on 3
+   pairs (the last short: it freezes early), every emit at piecewise
+   0/1/2; (b) against the plain version at band 512 in every emit and
+   piecewise; (c) an adversarial state (random planes that drive f and g
+   to the clamp at 127): rows replay in the kernel, and the outputs still
+   equal the narrow row's and the plain version's; (d) the crossover:
+   microseconds per row of both rows at W 8, 16, 32, 64, 128, 256, 1,024
+   and 2,000, 8 and 256 pairs, and the chosen WIDE_W; the replayed rows.
 
 The cycle split (phases 3, 10 and 11, and --split): one launch with the
 kernel's optional per-phase clock64() counters on, against one with them
@@ -469,7 +488,8 @@ def edit_bytes(g, ops):
 
 
 # the main paths' instantiations of each kernel, by template arguments:
-# banded-8 (piecewise, mode, emit, planes in device memory), edit (K words
+# banded-8's narrow and wide rows (piecewise, mode, emit, planes in device
+# memory), edit (K words
 # per lane, mode, vector stores; NW 64 is K 2), pedit (K cells per lane;
 # band 32 is K 1); the wide bands' kernels of phase 16: banded-8 with its
 # planes in device memory (align's defaults, overlap), the segmented edit
@@ -482,6 +502,11 @@ PTXAS_MAIN = {
                 ((1, 1, 2, 1), "pw1 overlap none, planes in device memory"),
                 ((2, 1, 1, 1), "pw2 overlap planes, planes in device "
                  "memory")),
+    "banded8_wide": (((1, 1, 0, 0), "pw1 overlap codes (align's defaults, "
+                      "cat)"),
+                     ((1, 1, 2, 0), "pw1 overlap none (the two-pass "
+                      "mode's first pass)"),
+                     ((2, 1, 1, 0), "pw2 overlap planes (map-ont)")),
     "edit": (((2, 0, 1), "K 2 global (NW 64)"),),
     "edit_seg": (((0,), "segmented row, global"),),
     "pedit": (((1,), "K 1 (band 32)"),),
@@ -494,8 +519,9 @@ def ptxas_report(srcs, flags):
     together (killed at exit if still running); returns a function that
     waits for them and returns {(kernel, template arguments): (registers,
     stack bytes, spill store bytes, spill load bytes)} for each
-    instantiation of banded8_rows_kernel, edit_rows_kernel,
-    edit_seg_rows_kernel, pedit_rows_kernel and pedit_wide_rows_kernel."""
+    instantiation of banded8_rows_kernel, banded8_wide_kernel,
+    edit_rows_kernel, edit_seg_rows_kernel, pedit_rows_kernel and
+    pedit_wide_rows_kernel."""
     tmp = tempfile.mkdtemp()
     procs = []
     for k, src in enumerate(srcs):
@@ -518,9 +544,9 @@ def ptxas_report(srcs, flags):
                 m = re.search(r"(?:Compiling entry function|Function "
                               r"properties for) '?(\S+?)'?( for|$)", line)
                 if m:
-                    k = re.search(r"\d(banded8|pedit_wide|pedit|edit_seg|"
-                                  r"edit)_rows_kernel(?:I((?:L[ib]\d+E)+)E)?",
-                                  m.group(1))
+                    k = re.search(r"\d(banded8_wide|banded8|pedit_wide|"
+                                  r"pedit|edit_seg|edit)(?:_rows)?_kernel"
+                                  r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
                     key = (k.group(1), tuple(int(x) for x in re.findall(
                         r"L[ib](\d+)E", k.group(2) or ""))) if k else None
                     continue
@@ -547,14 +573,16 @@ def ptxas_check(ptxas_wait):
     ptxas = ptxas_wait()
     for kern, mains in PTXAS_MAIN.items():
         for args, nm in mains:
+            kname = kern + ("_kernel" if kern == "banded8_wide"
+                            else "_rows_kernel")
             if (kern, args) not in ptxas:
-                return f"ptxas -v names no {kern}_rows_kernel {args}"
+                return f"ptxas -v names no {kname} {args}"
             regs, stack, sst, sld = ptxas[(kern, args)]
-            print(f"ptxas {kern}_rows_kernel {nm}: {regs} registers, {stack} "
+            print(f"ptxas {kname} {nm}: {regs} registers, {stack} "
                   f"bytes stack frame, {sst} bytes spill stores, {sld} bytes "
                   "spill loads")
             if sst or sld:
-                return f"{kern}_rows_kernel {nm} spills"
+                return f"{kname} {nm} spills"
         alls = [v for (k, _), v in ptxas.items() if k == kern]
         print(f"ptxas all {len(alls)} {kern} instantiations: registers "
               f"{min(v[0] for v in alls)}-{max(v[0] for v in alls)}, spills "
@@ -591,6 +619,19 @@ def main() -> int:
     def reset_counts():
         _cuda.launches_codes = _cuda.launches_planes = 0
         _cuda.launches_none = _cuda.edit_launches = _cuda.pedit_launches = 0
+        _cuda.launches_wide_codes = _cuda.launches_wide_planes = 0
+        _cuda.launches_wide_none = 0
+
+    def a_counts():
+        """Kernel A's launches since reset_counts, by emit (both rows) and
+        by emit of the wide row."""
+        return (dict(codes=_cuda.launches_codes + _cuda.launches_wide_codes,
+                     planes=_cuda.launches_planes
+                     + _cuda.launches_wide_planes,
+                     none=_cuda.launches_none + _cuda.launches_wide_none),
+                dict(codes=_cuda.launches_wide_codes,
+                     planes=_cuda.launches_wide_planes,
+                     none=_cuda.launches_wide_none))
 
     # ---- phase 1: environment and builds ----
     name = torch.cuda.get_device_name(0)
@@ -604,7 +645,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     ptxas_wait = ptxas_report(
         [os.path.join(_cuda.CSRC, f"{n}.cu")
-         for n in ("banded8", "edit", "pedit")],
+         for n in ("banded8", "banded8_wide", "edit", "pedit")],
         [_cuda._nvcc()] + _cuda.NVCC_FLAGS)
     _cuda.lib()
     native.rowops_lib()
@@ -735,12 +776,13 @@ def main() -> int:
                            text=True, timeout=60)
         return r.stdout.strip() or "not read"
 
-    def split_line(label, g, st, ms):
+    def split_line(label, g, st, ms, design=None):
         """The kernel's cycle split at this shape: SM clock cycles per phase
-        per row below tlen (mean over pairs), and the launch with the split
-        on against one with it off (their outputs must be equal)."""
-        on = _cuda.banded8_rows(g, st, cycle_split=True)
-        off = _cuda.banded8_rows(g, st)
+        per row below tlen (mean over pairs; the wide row's counted by
+        thread 0 of each block), and the launch with the split on against
+        one with it off (their outputs must be equal)."""
+        on = _cuda.banded8_rows(g, st, cycle_split=True, design=design)
+        off = _cuda.banded8_rows(g, st, design=design)
         torch.cuda.synchronize()
         cyc = on.pop("cycles").cpu().double()
         err, bad = diff_raw(g, st, on, off)
@@ -786,6 +828,22 @@ def main() -> int:
                            ms)
             except RuntimeError as e:
                 return fail(f"--split {e}")
+        # both rows of kernel A at W 64 (cat's joins), 128 (align's
+        # defaults on 2 kb) and 2,000 (on 33 kb): codes, overlap, 512 rows
+        for W, n in ((64, 1), (128, 16), (2000, 8)):
+            qs, ts = gen_pairs_fast(n, 16 * W + 1000, 0.10, SEED + 90 + W)
+            g, st = operands(qs, ts, MODE_OVERLAP, 16 * W, AFF, "codes")
+            g = g._replace(T=512)
+            st = st._replace(tseq=st.tseq[:, :512].contiguous(),
+                             rby=st.rby[:512].contiguous())
+            for design in ("narrow", "wide"):
+                ms = timed_ms(lambda: _cuda.banded8_rows(g, st,
+                                                         design=design), 3)
+                try:
+                    split_line(f"{design} row, codes {n} pairs x 512 rows at "
+                               f"W={W}", g, st, ms, design)
+                except RuntimeError as e:
+                    return fail(f"--split {e}")
         err = ptxas_check(ptxas_wait)
         return fail(err) if err else 0
 
@@ -1111,42 +1169,48 @@ def main() -> int:
                     if emit == "codes" and pw == 2:
                         continue
                     g, st = operands(qs, ts, mode, bw, gaps, emit, m_)
-                    sh = _cuda.banded8_rows(g, st, store="shared")
-                    gl = _cuda.banded8_rows(g, st, store="global")
-                    torch.cuda.synchronize()
-                    err, bad = diff_raw(g, st, gl, sh)
-                    if g.piecewise != pw:
-                        bad.append(f"piecewise {g.piecewise}, not {pw}")
-                    need(f"(a) band {bw} {emit} pw{pw}", err, bad)
-                    if bw != 2048:
-                        continue
-                    # the global store resumed in chunks of 1,024 rows
-                    reg, state, parts = None, [st.us, st.es, st.qs,
-                                               st.ub], []
-                    for c0 in range(0, g.T, 1024):
-                        n = min(1024, g.T - c0)
-                        r = _cuda.banded8_rows(g._replace(T=n), st._replace(
-                            tseq=st.tseq[:, c0:c0 + n].contiguous(),
-                            rby=st.rby[c0:c0 + n].contiguous(), us=state[0],
-                            es=state[1], qs=state[2], ub=state[3],
-                            reg=st.reg if reg is None else reg, row0=c0),
-                            store="global")
-                        parts.append(r)
-                        state = (r["fin_planes"] + [None, None])[:3] \
-                            + [r["fin_ub"]]
-                        reg = r["fin_reg"]
-                    torch.cuda.synchronize()
-                    last = parts[-1]
-                    joined = {k: (last[k] if k.startswith("fin")
-                                  or last[k] is None else
-                                  torch.cat([x[k] for x in parts], 0))
-                              for k in last}
-                    err, bad = diff_raw(g, st, joined, sh)
-                    need(f"(a) band {bw} {emit} pw{pw} resumed", err, bad)
+                    for design in ("narrow", "wide"):
+                        sh = _cuda.banded8_rows(g, st, store="shared",
+                                                design=design)
+                        gl = _cuda.banded8_rows(g, st, store="global",
+                                                design=design)
+                        torch.cuda.synchronize()
+                        err, bad = diff_raw(g, st, gl, sh)
+                        if g.piecewise != pw:
+                            bad.append(f"piecewise {g.piecewise}, not {pw}")
+                        need(f"(a) band {bw} {emit} pw{pw} {design}", err,
+                             bad)
+                        if bw != 2048:
+                            continue
+                        # the global store resumed in chunks of 1,024 rows
+                        reg, state, parts = None, [st.us, st.es, st.qs,
+                                                   st.ub], []
+                        for c0 in range(0, g.T, 1024):
+                            n = min(1024, g.T - c0)
+                            r = _cuda.banded8_rows(g._replace(T=n), st._replace(
+                                tseq=st.tseq[:, c0:c0 + n].contiguous(),
+                                rby=st.rby[c0:c0 + n].contiguous(),
+                                us=state[0], es=state[1], qs=state[2],
+                                ub=state[3], reg=st.reg if reg is None else reg,
+                                row0=c0), store="global", design=design)
+                            parts.append(r)
+                            state = (r["fin_planes"] + [None, None])[:3] \
+                                + [r["fin_ub"]]
+                            reg = r["fin_reg"]
+                        torch.cuda.synchronize()
+                        last = parts[-1]
+                        joined = {k: (last[k] if k.startswith("fin")
+                                      or last[k] is None else
+                                      torch.cat([x[k] for x in parts], 0))
+                                  for k in last}
+                        err, bad = diff_raw(g, st, joined, sh)
+                        need(f"(a) band {bw} {emit} pw{pw} {design} resumed",
+                             err, bad)
             print(f"phase16 (a) band {bw}: 8 x {L} bp "
                   f"{['global', 'overlap', 'extend'][mode]}, every emit at "
-                  f"piecewise 0/1/2: planes in device memory == shared "
-                  f"memory{' (and resumed in chunks of 1,024 rows)' if bw == 2048 else ''}, "
+                  f"piecewise 0/1/2, the narrow and the wide row: planes in "
+                  f"device memory == shared memory"
+                  f"{' (and resumed in chunks of 1,024 rows)' if bw == 2048 else ''}, "
                   f"max_abs_err=0")
         stamp16("a")
 
@@ -1158,22 +1222,30 @@ def main() -> int:
             st = st._replace(tseq=st.tseq[:, :64].contiguous(),
                              rby=st.rby[:64].contiguous())
             smem = _cuda.banded8_store_bytes(g.W, g.piecewise)
-            err, bad, p_ms = compare(g, st)
+            err, bad, p_ms = compare(g, st)   # the wide row
             if g.piecewise != pw or smem <= _cuda.SMEM_MAX:
-                bad.append(f"piecewise {g.piecewise}, planes {smem} bytes "
-                           "a block")
+                bad.append(f"piecewise {g.piecewise}, narrow planes {smem} "
+                           "bytes a block")
             need(f"(b) planes pw{pw}", err, bad)
             rk = _cuda.banded8_rows(g, st)
+            rw = _cuda.banded8_rows(g, st, design="narrow")
             rn = _cuda.banded8_rows(g._replace(emit="none"), st)
             torch.cuda.synchronize()
+            err, bad = diff_raw(g, st, rw, rk)
+            need(f"(b) planes pw{pw}: the narrow row, planes in device "
+                 "memory", err, bad)
             err, bad = diff_raw(g, st, rn, {k: rk[k] for k in (
                 "fin_planes", "fin_ub", "fin_reg")})
             need(f"(b) none pw{pw} final state", err, bad)
             k_ms = timed_ms(lambda: _cuda.banded8_rows(g, st), 2)
+            n_ms = timed_ms(lambda: _cuda.banded8_rows(
+                g, st, design="narrow"), 2)
             print(f"phase16 (b) band 32768 (W=2048) pw{pw}, 2 x 32 kb, "
-                  f"first 64 rows: planes and none == plain, max_abs_err=0; "
-                  f"planes kernel {k_ms:.3f} ms = {k_ms / 64:.4f} ms per "
-                  f"row; plain on the card {p_ms:.1f} ms")
+                  f"first 64 rows: planes and none == plain and the narrow "
+                  f"row == the wide row, max_abs_err=0; planes kernel, wide "
+                  f"row {k_ms:.3f} ms = {k_ms / 64:.4f} ms per row, narrow "
+                  f"row {n_ms:.3f} ms = {n_ms / 64:.4f} ms per row; plain on "
+                  f"the card {p_ms:.1f} ms")
         stamp16("b")
 
         def wide_align(label, n_t_q, seed, m_, gaps):
@@ -1194,8 +1266,7 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.time() - t0
             peak = torch.cuda.max_memory_allocated()
-            cnt = dict(codes=_cuda.launches_codes,
-                       planes=_cuda.launches_planes, none=_cuda.launches_none)
+            cnt, wcnt = a_counts()
             ctr = metrics.counters()
             pw = O.get_piecewise(*gaps, bw)
             T = roundup(tl, 128)
@@ -1204,7 +1275,8 @@ def main() -> int:
                               sorted(ctr.items()))
             print(f"phase16 {label}: {n} x {tl} bp (query {ql}) at band "
                   f"{bw} pw{pw}, T={T}: {wall:.3f}s = {n / wall:.4f} pairs/s; "
-                  f"launches {cnt}, {per} pairs and {Tc} rows a launch "
+                  f"launches {cnt} (the wide row {wcnt}), {per} pairs and "
+                  f"{Tc} rows a launch "
                   f"(LAUNCH_BYTES {P.LAUNCH_BYTES}); {parts}; walk and the "
                   f"rest {wall - sum(c.seconds for c in ctr.values()):.3f}s; "
                   f"peak device memory {peak / 1e6:.1f} MB")
@@ -1232,15 +1304,15 @@ def main() -> int:
             print(f"phase16 {label}: every CIGAR consumes its [qb, qe) x "
                   f"[tb, te) and re-scores to its score; a one-shot "
                   f"scores-only forward of {T} rows gives each score and end")
-            return per, cnt, qs, ts
+            return per, cnt, wcnt, qs, ts
 
         # (c) align at the CLI defaults: the two-pass route at band 32,000
-        _, cnt_c, qs_c, ts_c = wide_align("(c) align defaults", WIDE_ALIGN,
-                                          SEED + 162, mtx, AFF)
+        _, cnt_c, wcnt_c, qs_c, ts_c = wide_align(
+            "(c) align defaults", WIDE_ALIGN, SEED + 162, mtx, AFF)
         stamp16("c")
         # (d) map-ont costs: planes and backcal at band 24,064
-        per_d, cnt_d, qs_d, ts_d = wide_align("(d) align map-ont", WIDE_ONT,
-                                              SEED + 163, m_ont, ONT)
+        per_d, cnt_d, wcnt_d, qs_d, ts_d = wide_align(
+            "(d) align map-ont", WIDE_ONT, SEED + 163, m_ont, ONT)
         T = roundup(WIDE_ONT[1], 128)
         groups = -(-WIDE_ONT[0] // per_d)
         if groups < 2 or cnt_d["planes"] != groups * -(-T // P.T_CHUNK):
@@ -1249,6 +1321,7 @@ def main() -> int:
         stamp16("d")
 
         # (e) kernel B past 512 words, then edit -W 0 on 24 kb
+        seg_err = 0
         for label, L, bw, mode in (("overlap NW 640", 20000, 20480,
                                     MODE_OVERLAP),
                                    ("global NW 1024", 32000, 32768,
@@ -1260,6 +1333,7 @@ def main() -> int:
             g, ops = edit_operands(qs, ts, mode, bw, False)
             err, bad, p_ms = edit_compare(g, ops)
             need(f"(e) {label}", err, bad)
+            seg_err, seg_plain_ms = max(seg_err, err), p_ms
             k_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 3)
             print(f"phase16 (e) edit kernel {label}: 4 x {L} bp against "
                   f"2 kb, T={g.T}: max_abs_err=0; kernel {k_ms:.3f} ms, "
@@ -1310,6 +1384,7 @@ def main() -> int:
 
         # (f) kernel C past bw 1,022, then poa -G editbw=4096
         rng = np.random.default_rng(SEED + 166)
+        pw_row = dict(err=0)
         for bw in (1024, 1534, 4094):
             jobs = [rand_job(rng, int(rng.integers(200, 600)), bw)
                     for _ in range(6)]
@@ -1319,6 +1394,8 @@ def main() -> int:
             k_ms = timed_ms(lambda: _cuda.pedit_rows(pk), 3)
             p_bytes, p_cells = pedit_work(jobs)
             b_ms, b_by, b_text = bound(p_bytes, p_cells * PEDIT_OPS_PER_CELL)
+            pw_row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, err=max(err, pw_row["err"]))
             print(f"phase16 (f) pedit bw {bw}: 6 random jobs, "
                   f"max_abs_err=0; kernel {k_ms:.3f} ms, plain on the card "
                   f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by} ({b_text})")
@@ -1385,8 +1462,8 @@ def main() -> int:
         bands = [c[2] for c in calls]
         print(f"phase16 (g) cat of 2 pieces of {WIDE_CAT[0]} bp, stated "
               f"overlap {WIDE_CAT[2]}, real {WIDE_CAT[1]}: {wall:.3f}s, "
-              f"joins at bands {bands}, launches codes "
-              f"{_cuda.launches_codes} none {_cuda.launches_none}; consensus "
+              f"joins at bands {bands}, kernel A launches {a_counts()[0]} "
+              f"(the wide row {a_counts()[1]}); consensus "
               f"{len(seq)} bp ({expect} expected); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
         if bands != [roundup(WIDE_CAT[2], 16), roundup(4 * WIDE_CAT[2], 16)]:
@@ -1410,21 +1487,35 @@ def main() -> int:
             st = st._replace(tseq=st.tseq[:, :P.T_CHUNK].contiguous(),
                              rby=st.rby[:P.T_CHUNK].contiguous())
             ms = timed_ms(lambda: _cuda.banded8_rows(g, st), 1)
+            n_ms = timed_ms(lambda: _cuda.banded8_rows(
+                g, st, design="narrow"), 1)
             nb, cells = banded8_work(g, st, _cuda.banded8_rows(g, st))
             b_ms, b_by, b_text = bound(nb, cells * ops)
             print(f"phase16 (h) kernel A {label}: {len(qs)} pairs x "
-                  f"{g.T} rows at band {bw} (W={g.W}, pw{g.piecewise}, planes "
-                  f"in device memory): {ms:.3f} ms = {ms / g.T:.4f} ms per "
-                  f"row, {cells / (ms / 1e3):.4g} cells/s; launches {launches}; "
-                  f"bound {b_ms:.4f} ms by {b_by} ({b_text})")
+                  f"{g.T} rows at band {bw} (W={g.W}, pw{g.piecewise}): the "
+                  f"wide row {ms:.3f} ms = {ms / g.T:.4f} ms per row, "
+                  f"{cells / (ms / 1e3):.4g} cells/s; the narrow row (planes "
+                  f"in device memory) {n_ms:.3f} ms = {n_ms / g.T:.4f} ms per "
+                  f"row ({n_ms / ms:.1f}x); launches {launches}; bound "
+                  f"{b_ms:.4f} ms by {b_by} ({b_text})")
+            return dict(ms=ms, narrow_ms=n_ms, bound_ms=b_ms, bound_by=b_by,
+                        launches=launches)
         bw_c = roundup(WIDE_ALIGN[2], 128)
-        a_launch("none, (c)'s chunk", qs_c, ts_c, bw_c, AFF, mtx, "none",
-                 BANDED8_NONE_OPS_PER_CELL, f"{cnt_c['none']} in (c)")
-        a_launch("codes, (c)'s chunk", qs_c, ts_c, bw_c, AFF, mtx, "codes",
-                 BANDED8_OPS_PER_CELL, f"{cnt_c['codes']} in (c)")
-        a_launch("planes, (d)'s chunk", qs_d[:per_d], ts_d[:per_d],
-                 roundup(WIDE_ONT[2], 128), ONT, m_ont, "planes",
-                 BANDED8_PLANES_OPS_PER_CELL, f"{cnt_d['planes']} in (d)")
+        rows = dict(
+            wide_none=a_launch("none, (c)'s chunk", qs_c, ts_c, bw_c, AFF,
+                               mtx, "none", BANDED8_NONE_OPS_PER_CELL,
+                               wcnt_c["none"]),
+            wide_codes=a_launch("codes, (c)'s chunk", qs_c, ts_c, bw_c, AFF,
+                                mtx, "codes", BANDED8_OPS_PER_CELL,
+                                wcnt_c["codes"]),
+            wide_planes=a_launch("planes, (d)'s chunk", qs_d[:per_d],
+                                 ts_d[:per_d], roundup(WIDE_ONT[2], 128), ONT,
+                                 m_ont, "planes", BANDED8_PLANES_OPS_PER_CELL,
+                                 wcnt_d["planes"]))
+        if min(r["launches"] for r in rows.values()) < 1:
+            raise RuntimeError(f"phase 16: the wide row launched "
+                               f"{ {k: r['launches'] for k, r in rows.items()} } "
+                               "times in (c) and (d)")
         g, ops = edit_operands(qs_e[:per_e], ts_e[:per_e], MODE_GLOBAL,
                                32 * 752, False)
         ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 1)
@@ -1437,15 +1528,155 @@ def main() -> int:
               f"{nrows * g.bw / (ms / 1e3):.4g} cells/s; launches {cnt_e} in "
               f"(e); bound {b_ms:.4f} ms by {b_by} ({b_text})")
         del ops
+        rows["edit_seg"] = dict(ms=ms, plain_ms=seg_plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, launches=cnt_e, err=seg_err)
+        rows["pedit_wide"] = dict(pw_row, launches=cnt_f)
+        rows["worst"] = worst
         stamp16("h")
         stamp(16)
-        return worst
+        return rows
 
+
+    def phase17():
+        """Kernel A's wide row against the narrow row at bands 512, 2,048,
+        16,384 and 32,000 in every emit and piecewise, against the plain
+        version at band 512, on an adversarial state that makes it replay
+        rows; then both rows' time per row at W 8 to 2,000 (the crossover).
+        Returns the wide row's largest error and the plain version's ms by
+        emit."""
+        t17 = time.time()
+        GAPS = {0: (0, -4, 0, 0), 1: (-3, -2, 0, 0), 2: (-4, -2, -24, -1)}
+        m_ont = O.set_score_matrix(2, -4)
+        worst, replays, plain_ms = 0, 0, {}
+
+        def need(label, err, bad):
+            nonlocal worst
+            worst = max(worst, err)
+            if bad:
+                raise RuntimeError(f"phase 17 {label}: " + "; ".join(bad[:8]))
+
+        def cut(qs, ts, mode, bw, pw, emit, T):
+            g, st = operands(qs, ts, mode, bw, GAPS[pw], emit,
+                             m_ont if pw == 2 else mtx)
+            if g.piecewise != pw:
+                raise RuntimeError(f"phase 17: piecewise {g.piecewise} at "
+                                   f"band {bw}, not {pw}")
+            T = min(T, g.T)
+            return g._replace(T=T), st._replace(
+                tseq=st.tseq[:, :T].contiguous(), rby=st.rby[:T].contiguous())
+
+        def wide(g, st):
+            nonlocal replays
+            out = _cuda.banded8_rows(g, st, design="wide",
+                                     count_replays=True)
+            replays += int(out.pop("replays").sum())
+            return out
+
+        def combos():
+            return [(pw, emit) for pw in (0, 1, 2)
+                    for emit in ("codes", "planes", "none")
+                    if not (emit == "codes" and pw == 2)]
+
+        # (a) the wide row == the narrow row; 3 pairs, the last short (it
+        # freezes early) and its query short
+        for bw, L, T, mode in ((512, 700, 800, MODE_GLOBAL),
+                               (2048, 2600, 600, MODE_OVERLAP),
+                               (16384, 17000, 256, MODE_EXTEND),
+                               (32000, 33000, 128, MODE_OVERLAP)):
+            qs, ts = gen_pairs_fast(3, L, 0.10, SEED + 170 + bw % 89)
+            qs[2], ts[2] = qs[2][:L // 2], ts[2][:min(L // 3, T // 2)]
+            for pw, emit in combos():
+                g, st = cut(qs, ts, mode, bw, pw, emit, T)
+                rw = wide(g, st)
+                rn = _cuda.banded8_rows(g, st, design="narrow")
+                torch.cuda.synchronize()
+                need(f"(a) band {bw} {emit} pw{pw}", *diff_raw(g, st, rw, rn))
+            print(f"phase17 (a) band {bw} (W={bw // 16}, "
+                  f"{['global', 'overlap', 'extend'][mode]}), 3 pairs x "
+                  f"{min(T, g.T)} rows, every emit at piecewise 0/1/2: the "
+                  f"wide row == the narrow row, max_abs_err=0")
+        # (b) the wide row == the plain version at a small band
+        qs, ts = gen_pairs(3, 700, 0.10, SEED + 171)
+        qs[2] = qs[2][:300]
+        for k, (pw, emit) in enumerate(combos()):
+            mode = (MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND)[k % 3]
+            g, st = cut(qs, ts, mode, 512, pw, emit, 400)
+            rw = wide(g, st)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            rp = K.forward_plain(g, st)
+            e1.record()
+            torch.cuda.synchronize()
+            need(f"(b) {emit} pw{pw} vs plain", *diff_raw(g, st, rw, rp))
+            plain_ms[emit] = e0.elapsed_time(e1)
+            print(f"phase17 (b) band 512 (W=32) "
+                  f"{['global', 'overlap', 'extend'][mode]} {emit} pw{pw}, 3 "
+                  f"pairs x {g.T} rows: the wide row == plain, "
+                  f"max_abs_err=0; plain on the card {plain_ms[emit]:.1f} ms")
+        # (c) an adversarial state (random planes that drive f and g to the
+        # clamp at 127): rows replay, and the outputs still agree
+        rng = np.random.default_rng(SEED + 172)
+        before = replays
+        for pw, emit in ((1, "codes"), (2, "planes"), (0, "none")):
+            g, st = cut(qs, ts, MODE_OVERLAP, 512, pw, emit, 48)
+            shp = tuple(st.us.shape)
+
+            def rnd(lo, hi):
+                return torch.as_tensor(rng.integers(lo, hi, shp).astype(
+                    np.int32), device=dev)
+            st = st._replace(us=rnd(-128, -60),
+                             es=rnd(20, 128) if pw >= 1 else None,
+                             qs=rnd(20, 128) if pw == 2 else None)
+            rw = wide(g, st)
+            rn = _cuda.banded8_rows(g, st, design="narrow")
+            rp = K.forward_plain(g, st)
+            torch.cuda.synchronize()
+            need(f"(c) adversarial {emit} pw{pw} vs narrow",
+                 *diff_raw(g, st, rw, rn))
+            need(f"(c) adversarial {emit} pw{pw} vs plain",
+                 *diff_raw(g, st, rw, rp))
+        if replays == before:
+            raise RuntimeError("phase 17 (c): the adversarial state replayed "
+                               "no row")
+        print(f"phase17 (c) adversarial state, 3 pairs x 48 rows in 3 emits: "
+              f"{replays - before} rows replayed, the wide row == narrow == "
+              f"plain, max_abs_err=0")
+        # (d) the crossover: microseconds per row of both rows, overlap,
+        # piecewise 1, codes, 256 rows, at two batch sizes
+        print(f"phase17 (d) crossover, us per row (256 rows, codes, pw1; "
+              f"{smi_line}):")
+        cross = {}
+        for W in (8, 16, 32, 64, 128, 256, 1024, 2000):
+            bw = 16 * W
+            line = []
+            for B in (8, 256):
+                qs, ts = gen_pairs_fast(B, bw + 1000, 0.10, SEED + 173 + W)
+                g, st = cut(qs, ts, MODE_OVERLAP, bw, 1, "codes", 256)
+                n_ms = timed_ms(lambda: _cuda.banded8_rows(
+                    g, st, design="narrow"), 3)
+                w_ms = timed_ms(lambda: _cuda.banded8_rows(
+                    g, st, design="wide"), 3)
+                cross[(W, B)] = (n_ms, w_ms)
+                line.append(f"B={B}: narrow {n_ms / g.T * 1e3:.3f}, wide "
+                            f"{w_ms / g.T * 1e3:.3f} ({n_ms / w_ms:.2f}x)")
+                del st
+            print(f"phase17 (d) W={W}: " + "; ".join(line))
+        faster = [W for W in (8, 16, 32, 64, 128, 256, 1024, 2000)
+                  if all(cross[(W, B)][1] < cross[(W, B)][0]
+                         for B in (8, 256))]
+        print(f"phase17 (d) the wide row is faster at both batch sizes at W "
+              f"{faster}; WIDE_W = {_cuda.WIDE_W}")
+        print(f"phase17 replayed rows over the whole phase: {replays}")
+        print(f"phase17 done at {time.time() - t_start:.1f}s "
+              f"({time.time() - t17:.1f}s)")
+        return worst, plain_ms
 
     if "--wide" in sys.argv[1:]:
-        # phase 16 alone
+        # phases 16 and 17 alone
         try:
             phase16(edit_cpu)
+            phase17()
         except RuntimeError as e:
             return fail(str(e))
         err = ptxas_check(ptxas_wait)
@@ -1602,6 +1833,7 @@ def main() -> int:
     for i, q in enumerate(qs):
         buckets.setdefault(roundup(len(q), 128), []).append(i)
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.time()
     res4 = [None] * len(qs)
     for b4, idxs in buckets.items():
@@ -1611,10 +1843,22 @@ def main() -> int:
             res4[i] = r
     torch.cuda.synchronize()
     t4 = time.time() - t0
-    print(f"phase4 band(s) {sorted(buckets)}: 16 pairs in {t4:.3f}s")
+    cnt4, wide4 = a_counts()
+    print(f"phase4 band(s) {sorted(buckets)}: 16 pairs in {t4:.3f}s; kernel "
+          f"A launches {cnt4} (the wide row {wide4})")
     check = [i for i in range(len(qs)) if roundup(len(qs[i]), 128) == 2048]
     if not check:
         return fail("phase 4: no pair lands in the band-2048 bucket")
+    if wide4["codes"] < 1:
+        return fail("phase 4: the wide row never launched at band 2048")
+    g4, st4 = operands([qs[i] for i in check], [ts[i] for i in check],
+                       MODE_OVERLAP, 2048, gaps)
+    w4 = timed_ms(lambda: _cuda.banded8_rows(g4, st4), 3)
+    n4 = timed_ms(lambda: _cuda.banded8_rows(g4, st4, design="narrow"), 3)
+    print(f"phase4 kernel A at the band-2048 launch ({len(check)} pairs x "
+          f"{g4.T} rows, W=128): the wide row {w4:.3f} ms = "
+          f"{w4 / g4.T * 1e3:.3f} us per row, the narrow row {n4:.3f} ms = "
+          f"{n4 / g4.T * 1e3:.3f} us per row ({n4 / w4:.1f}x)")
     check = check[:2]
     cpu4 = P.align_batch([qs[i] for i in check], [ts[i] for i in check],
                          MODE_OVERLAP, 2048, mtx, *gaps, device="cpu")
@@ -2058,19 +2302,20 @@ def main() -> int:
             wall = time.time() - t0
         finally:
             _cuda.banded8_rows = rows
-        launches = _cuda.launches_codes + _cuda.launches_planes \
-            + _cuda.launches_none
+        cnt, wide = a_counts()
+        launches = sum(cnt.values())
         joins = CAT_WINDOWS - 1
         k_ms = sum(a.elapsed_time(b) for a, b in events)
         seq = "".join(out.splitlines()[1:])
         print(f"phase12 cat --device cuda: {CAT_WINDOWS} windows of "
               f"{CAT_WIN} bp in {wall:.3f}s = "
-              f"{joins / wall:.2f} joins/s; kernel A {launches} launches, "
+              f"{joins / wall:.2f} joins/s; kernel A {launches} launches "
+              f"({wide['codes']} of the wide row), "
               f"{k_ms:.1f} ms = {k_ms / joins:.3f} ms per join, "
               f"{k_ms / 1e3 / wall * 100:.1f}% of the wall time; "
               f"consensus {len(seq)} bp ({expect} expected, less what the "
               f"failed join cuts)")
-        if launches < joins or _cuda.launches_codes != launches:
+        if launches < joins or cnt["codes"] != launches:
             raise RuntimeError(f"phase 12: kernel A launched {launches} "
                                f"times for {joins} joins")
         # the failed join cuts the consensus where its junk alignment
@@ -2282,7 +2527,8 @@ def main() -> int:
         phase13()
         phase14(main_jobs)
         phase15()
-        phase16(edit_cpu)
+        r16 = phase16(edit_cpu)
+        w_err, w_plain = phase17()
     except RuntimeError as e:
         return fail(str(e))
 
@@ -2328,7 +2574,33 @@ def main() -> int:
         "launches": pedit_launches, "max_abs_err": pedit_err,
         "ms": pedit_ms, "plain_ms": pedit_plain_ms,
         "bound_ms": pedit_bound_ms, "bound_by": pedit_bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": f"banded8_{key}", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/banded8_wide.cu",
+        "replaces": "bsalign_tpu/ops/banded8_pallas.py:742",
+        "launches": r16[key]["launches"],
+        "max_abs_err": max(w_err, r16["worst"]), "ms": r16[key]["ms"],
+        "plain_ms": w_plain[key.split("_")[1]],
+        "bound_ms": r16[key]["bound_ms"], "bound_by": r16[key]["bound_by"],
+        "library_ms": None} for key in ("wide_codes", "wide_planes",
+                                        "wide_none")] + [{
+        "name": "edit_seg_rows", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/edit.cu",
+        "replaces": "bsalign_tpu/ops/edit_pallas.py:88",
+        "launches": r16["edit_seg"]["launches"],
+        "max_abs_err": r16["edit_seg"]["err"], "ms": r16["edit_seg"]["ms"],
+        "plain_ms": r16["edit_seg"]["plain_ms"],
+        "bound_ms": r16["edit_seg"]["bound_ms"],
+        "bound_by": r16["edit_seg"]["bound_by"], "library_ms": None}, {
+        "name": "pedit_wide_rows", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/pedit.cu",
+        "replaces": "bsalign_tpu/ops/pedit_pallas.py:46",
+        "launches": r16["pedit_wide"]["launches"],
+        "max_abs_err": r16["pedit_wide"]["err"],
+        "ms": r16["pedit_wide"]["ms"],
+        "plain_ms": r16["pedit_wide"]["plain_ms"],
+        "bound_ms": r16["pedit_wide"]["bound_ms"],
+        "bound_by": r16["pedit_wide"]["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -75,6 +75,19 @@ def test_align_stdout_matches_jax_cli(fasta, mode, band, gaps):
     assert _torch_cli(argv) == want
 
 
+@pytest.mark.parametrize("band", ["256", "1024"])
+@pytest.mark.parametrize("mode", ["global", "overlap", "extend"])
+def test_align_wide_band_stdout_matches_jax_cli(fasta, mode, band):
+    """-W 256 and -W 1024 (W 16 and 64 stripes: on the card the wide row
+    from WIDE_W on), one gap model per mode."""
+    gaps = {"global": "affine", "overlap": "two_piece",
+            "extend": "linear"}[mode]
+    argv = ["align", "-m", mode, "-W", band] + GAPS[gaps] + [fasta]
+    want = _jax_cli(argv)
+    assert want.count("\n") == 5 * 4
+    assert _torch_cli(argv) == want
+
+
 def test_align_wrapped_lines_match_jax_cli(fasta):
     argv = ["align", "-m", "global", "-W", "32", "-L", "100", fasta]
     assert _torch_cli(argv) == _jax_cli(argv)

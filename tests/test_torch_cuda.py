@@ -664,3 +664,151 @@ def test_sharded_forwards_on_one_card(cuda_device):
     for (a0, a1), (b0, b1) in zip(gp, wp):
         assert np.array_equal(a0, b0) and np.array_equal(a1, b1)
     M.dryrun_multichip(torch.cuda.device_count())
+
+
+# ---- kernel A's wide row (csrc/banded8_wide.cu) against the narrow row ----
+
+WIDE_COMBOS = [(pw, emit) for pw in (0, 1, 2)
+               for emit in ("codes", "planes", "none")
+               if not (emit == "codes" and pw == 2)]
+WIDE_GAPS = {0: LINEAR, 1: AFFINE, 2: TWO_PIECE}
+
+
+def _wide_state(W, pw, emit, mode, seed, device, T=128, n=3):
+    """n pairs of about 1.1 bands (the last short, frozen early), cut to
+    T rows, at band 16 W."""
+    L = int(16 * W * 1.1) + 64
+    qs, ts = _pairs((L,) * n, 0.10, seed)
+    qs[-1], ts[-1] = qs[-1][:L // 2], ts[-1][:min(L // 3, T // 2)]
+    gaps = WIDE_GAPS[pw]
+    pw_, T0, args = _operands(qs, ts, mode, gaps, W)
+    assert pw_ == pw
+    T = min(T, T0)
+    qpad, qlens, tpad, tlens, mtx5, rby = args[:6]
+    g = K.Geometry(T, W, mode, pw, *gaps, NT_MAX, NT_MIN, emit)
+    st = K.state_from_numpy(qpad, qlens, tpad[:, :T], tlens, mtx5, rby[:T],
+                            *args[6:], T=T, device=device)
+    return g, st
+
+
+def _wide_and_narrow(g, st, **kw):
+    from bsalign_tpu_torch.ops import _cuda
+    rw = _cuda.banded8_rows(g, st, design="wide", count_replays=True, **kw)
+    rn = _cuda.banded8_rows(g, st, design="narrow", **kw)
+    torch.cuda.synchronize()
+    return rw, rn
+
+
+@pytest.mark.parametrize("W", ["WIDE_W", 64, 128, 1504, 2000])
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
+@pytest.mark.parametrize("combo", range(len(WIDE_COMBOS)))
+def test_wide_row_matches_narrow(combo, mode, W, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    W = _cuda.WIDE_W if W == "WIDE_W" else W
+    pw, emit = WIDE_COMBOS[combo]
+    g, st = _wide_state(W, pw, emit, mode, 300 + W + combo, cuda_device)
+    rw, rn = _wide_and_narrow(g, st)
+    rw.pop("replays")
+    _assert_same(rw, rn)
+
+
+@pytest.mark.parametrize("store", ["shared", "global"])
+@pytest.mark.parametrize("combo", range(len(WIDE_COMBOS)))
+def test_wide_row_resumed_odd_batch_and_stores(combo, store, cuda_device):
+    """The wide row resumed in chunks of 48 rows (a short last chunk) with
+    each store, on an odd batch whose pairs freeze at different rows,
+    gives the narrow row's one-shot launch."""
+    from bsalign_tpu_torch.ops import _cuda
+    pw, emit = WIDE_COMBOS[combo]
+    g, st = _wide_state(40, pw, emit, MODE_GLOBAL, 400 + combo, cuda_device,
+                        T=250, n=5)
+    one = _cuda.banded8_rows(g, st, design="narrow")
+    reg, state, parts = None, [st.us, st.es, st.qs, st.ub], []
+    for c0 in range(0, g.T, 48):
+        n = min(48, g.T - c0)
+        r = _cuda.banded8_rows(g._replace(T=n), st._replace(
+            tseq=st.tseq[:, c0:c0 + n].contiguous(),
+            rby=st.rby[c0:c0 + n].contiguous(), us=state[0], es=state[1],
+            qs=state[2], ub=state[3], reg=st.reg if reg is None else reg,
+            row0=c0), design="wide", store=store)
+        parts.append(r)
+        state = (r["fin_planes"] + [None, None])[:3] + [r["fin_ub"]]
+        reg = r["fin_reg"]
+    torch.cuda.synchronize()
+    last = parts[-1]
+    joined = {k: (last[k] if k.startswith("fin") or last[k] is None
+                  else torch.cat([p[k] for p in parts], 0)) for k in last}
+    _assert_same(joined, one)
+
+
+@pytest.mark.parametrize("gaps", [AFFINE, LINEAR, (-4, -2, -10, -1)])
+def test_wide_row_full_band_reset_matches_plain(gaps, cuda_device):
+    """qlen >> tlen: the global steering moves the band past its width
+    (a full reset) in the wide row at band 32 (W = 2)."""
+    from bsalign_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(22)
+    qs = [rng.integers(0, 4, L).astype(np.uint8) for L in (1600, 1800, 1400)]
+    ts = [rng.integers(0, 4, L).astype(np.uint8) for L in (40, 45, 30)]
+    pw, T, args = _operands(qs, ts, MODE_GLOBAL, gaps, 2)
+    g = K.Geometry(T, 2, MODE_GLOBAL, pw, *gaps, NT_MAX, NT_MIN,
+                   "planes" if pw == 2 else "codes")
+    st = K.state_from_numpy(*args, T=T, device=cuda_device)
+    rw = _cuda.banded8_rows(g, st, design="wide")
+    rp = K.forward_plain(g, st)
+    torch.cuda.synchronize()
+    begs = rw["begs"].cpu().numpy()
+    assert max(np.diff(begs[:40, b], prepend=0).max() for b in range(3)) >= 32
+    _assert_same(rw, rp)
+
+
+@pytest.mark.parametrize("W", [32, 40])
+@pytest.mark.parametrize("combo", range(len(WIDE_COMBOS)))
+def test_wide_row_matches_plain(combo, W, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    pw, emit = WIDE_COMBOS[combo]
+    mode = (MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND)[combo % 3]
+    g, st = _wide_state(W, pw, emit, mode, 500 + W + combo, cuda_device,
+                        T=160)
+    rw = _cuda.banded8_rows(g, st, design="wide")
+    rp = K.forward_plain(g, st)
+    torch.cuda.synchronize()
+    _assert_same(rw, rp)
+
+
+@pytest.mark.parametrize("combo", range(len(WIDE_COMBOS)))
+def test_wide_row_replays_adversarial_state(combo, cuda_device):
+    """Random planes that drive f and g to the clamp at 127: the scan's
+    proposals fail the boundary check, the rows replay in the kernel, and
+    every output still equals the narrow row's and the plain version's."""
+    pw, emit = WIDE_COMBOS[combo]
+    g, st = _wide_state(40, pw, emit, MODE_OVERLAP, 600 + combo, cuda_device,
+                        T=40)
+    rng = np.random.default_rng(600 + combo)
+    shp = tuple(st.us.shape)
+
+    def rnd(lo, hi):
+        return torch.as_tensor(rng.integers(lo, hi, shp).astype(np.int32),
+                               device=cuda_device)
+    st = st._replace(us=rnd(-128, -60), es=rnd(20, 128) if pw >= 1 else None,
+                     qs=rnd(20, 128) if pw == 2 else None)
+    rw, rn = _wide_and_narrow(g, st)
+    replays = rw.pop("replays")
+    assert int(replays.sum()) > 0
+    _assert_same(rw, rn)
+    _assert_same(rw, K.forward_plain(g, st))
+
+
+def test_wide_row_dispatch_and_counts(cuda_device):
+    """banded8_rows takes the wide row from WIDE_W stripes on and counts
+    its launches apart from the narrow row's; the replay counter is the
+    wide row's alone."""
+    from bsalign_tpu_torch.ops import _cuda
+    for W, wide in ((_cuda.WIDE_W - 1, False), (_cuda.WIDE_W, True)):
+        g, st = _wide_state(W, 1, "codes", MODE_OVERLAP, 700 + W, cuda_device,
+                            T=32)
+        n0, w0 = _cuda.launches_codes, _cuda.launches_wide_codes
+        _cuda.banded8_rows(g, st)
+        assert (_cuda.launches_codes - n0, _cuda.launches_wide_codes - w0) \
+            == ((0, 1) if wide else (1, 0))
+    with pytest.raises(ValueError):
+        _cuda.banded8_rows(g, st, design="narrow", count_replays=True)
