@@ -41,18 +41,43 @@
 // The band shift by whole words crosses lanes through a small shared
 // buffer. One warp per block, so the pairs spread over the SMs.
 //
-// Bands past 32 x 16 = 512 words (16,384 bits) take the segmented row
-// (edit_seg_rows_kernel): the pair's row of pm/pp words lives in memory,
-// two rows double-buffered (16 bytes a word): in shared memory beside the
-// staged Eq planes while they fit the block's 227 KB (NW 3,200, a 100 kb
-// band, takes 51 KB), else in device memory (p.seg, 4 * NW words a pair).
-// The warp walks a row in segments of 32 x SEG_K words, in order; each
-// segment passes its addition carry and the top bits of its HP/HN words on
-// to the next, so the step is the same Myers step over the same words in
-// the same order, bit for bit. The band shift reads the row before at its
-// shifted offset (the other buffer, so no word is read after it is
-// overwritten). NW <= 512 keeps the register kernel above.
-//
+// Bands past 32 x 16 = 512 words (16,384 bits) take the block row
+// (edit_blk_rows_kernel), one block of NWARP warps a pair, each thread
+// owning K consecutive words of both planes in registers (K 4 to NW 2,048,
+// K 8 to NW 4,096: ops/_cuda.py edit_block_geometry). What bounds it is the
+// same chain of dependent rows, now with a carry across the warps in each
+// row (about 0.42 us a row even at one warp, PERF.md §6). The design:
+// - One block barrier a row. Before it each warp's lane 31 publishes one
+//   word: the warp's carry out for a carry in of 0 and of 1 (its generate
+//   and propagate bits), the top bits of its last HP/HN word for both
+//   carries in, and (overlap/extend) the warp's popcount partial of the
+//   row before. After it every warp reads all words, takes its carry in
+//   from one lookahead over the warps' bits ((pmask + gm) ^ pmask ^ gm, as
+//   over lanes), and lane 0 takes the HP/HN bits of the warp below by the
+//   carry that warp received. The words alternate between two slots by the
+//   row's parity, so no second barrier guards them.
+// - The row score is that block reduction, compared with the minimum a
+//   row later; sbeg leaves in one store per 32 rows.
+// - Row scalars come by shuffle two rows ahead, as in the register row;
+//   the Eq window is read a row ahead from the staged planes as aligned
+//   16-byte vectors (a warp's loads are consecutive, so no bank conflict at
+//   K 4) and shifted into place by selects. The block row stages the planes
+//   wherever they fit beside the shift's copy in the block's 227 KB
+//   (queries to about 200 kb at NW 4,096), past EQ_SMEM_MAX too: against
+//   word-by-word loads from device memory that took 17-18% off a row at
+//   NW 3,200 and 4,096 (PERF.md §6).
+// - The band shift (rows with movx > 0) goes through a shared copy of the
+//   row, on those rows only, with its popcount sum as a block reduction.
+// - Outputs leave as 16-byte vector stores when NW is a multiple of 4.
+// Past NW 4,096 the segmented row (edit_seg_rows_kernel) remains: the
+// pair's row of pm/pp words lives in memory, two rows double-buffered (16
+// bytes a word), in shared memory beside the staged Eq planes while they
+// fit the block's 227 KB, else in device memory (p.seg, 4 * NW words a
+// pair); one warp walks a row in segments of 32 x SEG_K words, in order,
+// each passing its addition carry and the top bits of its HP/HN words on to
+// the next. Every row computes the same Myers step over the same words in
+// the same order, bit for bit.
+
 // Layouts (int32 holding uint32 bits where planes are concerned):
 //   qeq [4, B, NWQ], qlen/tlen [B], tseq [B, T], rbegs/movxs [T, B];
 //   pm/pp [B, T, NW], sbeg [B, T], fin_pm/fin_pp [B, NW],
@@ -83,6 +108,7 @@ struct Params {
 // Eq planes up to this many bytes per pair are staged in shared memory
 // (queries up to 131,072 bases); longer ones are read from device memory.
 constexpr int EQ_SMEM_MAX = 64 * 1024;
+constexpr int SMEM_MAX = 227 * 1024;   // shared memory a block may take
 
 // Bits of word w whose band index is below n.
 __device__ __forceinline__ uint32_t lowmask(int w, int n) {
@@ -350,6 +376,328 @@ __global__ void __launch_bounds__(32) edit_rows_kernel(Params p) {
     }
 }
 
+// ---- the block row: one block of NWARP warps a pair ----
+
+// warps of the block row at most: ops/_cuda.py EDIT_BLOCK_MAXW, which the
+// build passes as EDIT_BLK_MAXW
+constexpr int BLK_MAXW = EDIT_BLK_MAXW;
+
+// Words of one staged Eq plane in the block row: the query's NWQ words
+// rounded up to 4, then K + 4 words of zeros that a thread's vector reads
+// past the query may touch.
+template <int K>
+__host__ __device__ constexpr int blk_plane(int NWQ) {
+    return ((NWQ + 3) & ~3) + K + 4;
+}
+
+// The K + 1 query words of a row's Eq window from word rbeg >> 5 + w0 of
+// its plane on; words outside [0, NWQ) read 0. From the staged planes (PS
+// words each, zero past NWQ) as (K + 4) / 4 aligned 16-byte vectors, the
+// window then picked by its offset in the first vector; elsewhere word by
+// word (device memory, or a window that reaches past the staged words).
+template <int K>
+__device__ __forceinline__ void load_eq_blk(const uint32_t *qeq, int NWQ,
+                                            int PS, bool staged, const Row &r,
+                                            int w0, uint32_t (&e)[K + 1]) {
+    const int ws = (r.rbeg >> 5) + w0;
+    const int a = ws & 3, base = ws - a;
+    if (staged && base >= 0 && base + K + 4 <= PS) {
+        uint32_t c[K + 4];
+        const uint4 *v = reinterpret_cast<const uint4 *>(qeq + r.plane + base);
+#pragma unroll
+        for (int j = 0; j < (K + 4) / 4; ++j) {
+            const uint4 x = v[j];
+            c[4 * j] = x.x; c[4 * j + 1] = x.y;
+            c[4 * j + 2] = x.z; c[4 * j + 3] = x.w;
+        }
+#pragma unroll
+        for (int j = 0; j < K + 2; ++j) c[j] = (a & 2) ? c[j + 2] : c[j];
+#pragma unroll
+        for (int j = 0; j <= K; ++j) e[j] = (a & 1) ? c[j + 1] : c[j];
+        return;
+    }
+    const uint32_t *q = qeq + r.plane + ws;
+#pragma unroll
+    for (int j = 0; j <= K; ++j)
+        e[j] = (unsigned)(ws + j) < (unsigned)NWQ ? q[j] : 0u;
+}
+
+// The thread's K words of one row at dst (the row's word w0): 16-byte
+// vector stores when `vec` (NW a multiple of 4, the planes aligned), those
+// below NW alone; else word by word.
+template <int K>
+__device__ __forceinline__ void store_blk(uint32_t *dst,
+                                          const uint32_t (&v)[K], int w0,
+                                          int NW, bool vec) {
+    if (vec) {
+#pragma unroll
+        for (int j = 0; j < K; j += 4)
+            if (w0 + j < NW)
+                *reinterpret_cast<uint4 *>(dst + j) =
+                    make_uint4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+            if (w0 + j < NW) dst[j] = v[j];
+    }
+}
+
+template <int K, int MODE>
+__global__ void __launch_bounds__(32 * BLK_MAXW) edit_blk_rows_kernel(
+    Params p) {
+    constexpr bool TRACK = MODE != GLOBAL;
+    extern __shared__ __align__(16) uint32_t blk_s[];   // Eq planes, shift row
+    __shared__ uint32_t xch[2][BLK_MAXW];   // each warp's word, by row parity
+    __shared__ int red[BLK_MAXW];           // the band shift's partial sums
+    const int b = blockIdx.x;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int nwarp = blockDim.x >> 5;
+    const int NW = p.NW, bw = 32 * NW, T = p.T, B = p.B, NWQ = p.NWQ;
+    const int PS = blk_plane<K>(NWQ);
+    // vector stores: NW a multiple of 4 and the planes 16-byte aligned
+    const bool vec =
+        NW % 4 == 0
+        && ((reinterpret_cast<uintptr_t>(p.pm)
+             | reinterpret_cast<uintptr_t>(p.pp)
+             | reinterpret_cast<uintptr_t>(p.fin_pm)
+             | reinterpret_cast<uintptr_t>(p.fin_pp)) & 15) == 0;
+    // the pair's Eq planes: plane v at qeq + v * pstride (+ pbase), staged
+    // in shared memory when they fit, else read from device memory
+    const uint32_t *qeq = p.qeq;
+    int pstride = B * NWQ, pbase = b * NWQ;
+    uint32_t *sh_pm = blk_s + (p.staged ? 4 * PS : 0);   // the shift's copy
+    uint32_t *sh_pp = sh_pm + blockDim.x * K;
+    if (p.staged) {
+        for (int w = t; w < 4 * PS; w += blockDim.x) {
+            const int v = w / PS, x = w - v * PS;
+            blk_s[w] = x < NWQ ? __ldg(p.qeq + ((size_t)v * B + b) * NWQ + x)
+                               : 0u;
+        }
+        qeq = blk_s;
+        pstride = PS;
+        pbase = 0;
+    }
+    __syncthreads();
+    const int qlen = p.qlen[b];
+    const int tlen = min(p.tlen[b], T);
+    const int w0 = t * K;
+
+    uint32_t pm[K], pp[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) { pm[j] = 0u; pp[j] = FULL; }
+    int sbeg = 0, smin = SMIN0, ry = 0, rbeg_f = 0;
+    int part = 0, sbeg_prev = 0;     // TRACK: the row before's warp partial
+                                     // and sbeg, reduced a row later
+
+    uint32_t *out_pm = p.pm + (size_t)b * T * NW + w0;   // row i's words,
+    uint32_t *out_pp = p.pp + (size_t)b * T * NW + w0;   // advanced by rows
+    int *out_sbeg = p.sbeg + (size_t)b * T;
+    int sb = 0;                      // warp 0, lane r: sbeg of row r of a
+                                     // 32-row block
+
+    // scalars of the 32-row block of row i and of the next block, one row
+    // per lane (every warp holds them), each loaded a block ahead
+    const int *tseq = p.tseq + (size_t)b * T;
+    const int *rbegs = p.rbegs + b, *movxs = p.movxs + b;
+    Row blk = load_row(tseq, rbegs, movxs, B, pstride, pbase, lane, tlen);
+    Row nblk = load_row(tseq, rbegs, movxs, B, pstride, pbase, 32 + lane,
+                        tlen);
+    Row cur = shfl_row(blk, nblk, 0), nxt = shfl_row(blk, nblk, 1);
+    uint32_t e[K + 1];               // the Eq words of row i
+    load_eq_blk<K>(qeq, NWQ, PS, p.staged, cur, w0, e);
+
+    // the row score of the row before from the warps' partials (bits 6 on
+    // of each warp's word), compared with the minimum
+    auto score_prev = [&](uint32_t xw, int i_prev) {
+        const int tot = __reduce_add_sync(FULL, lane < nwarp
+                                                    ? (int)xw >> 6 : 0);
+        if (sbeg_prev + tot < smin) { smin = sbeg_prev + tot; ry = i_prev; }
+    };
+
+    int i = 0;
+    while (i < tlen) {
+        // ---- band shift (striped_seqedit_row_movx, bsalign.h:658-721) ----
+        const int movx = cur.movx;
+        if (MODE != OVERLAP && movx > 0) {
+            const int mv = min(movx, bw);
+            int d = 0;
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const uint32_t m = lowmask(w0 + j, mv);
+                d += __popc(pp[j] & m) - __popc(pm[j] & m);
+            }
+            d = __reduce_add_sync(FULL, d);
+            if (lane == 0) red[warp] = d;
+            if (movx < bw) {
+#pragma unroll
+                for (int j = 0; j < K; ++j) {
+                    sh_pm[w0 + j] = pm[j];
+                    sh_pp[w0 + j] = pp[j];
+                }
+            }
+            __syncthreads();
+            sbeg += __reduce_add_sync(FULL, lane < nwarp ? red[lane] : 0);
+            if (movx >= bw) {
+#pragma unroll
+                for (int j = 0; j < K; ++j) { pm[j] = 0u; pp[j] = FULL; }
+            } else {
+                const int ws = movx >> 5, bs = movx & 31;
+#pragma unroll
+                for (int j = 0; j < K; ++j) {
+                    const int s = w0 + j + ws;
+                    const uint32_t lm = s < NW ? sh_pm[s] : 0u;
+                    const uint32_t lp = s < NW ? sh_pp[s] : 0u;
+                    const uint32_t hm = s + 1 < NW ? sh_pm[s + 1] : 0u;
+                    const uint32_t hp = s + 1 < NW ? sh_pp[s + 1] : 0u;
+                    const uint32_t keep = lowmask(w0 + j, bw - movx);
+                    pm[j] = __funnelshift_r(lm, hm, bs) & keep;
+                    pp[j] = (__funnelshift_r(lp, hp, bs) & keep) | ~keep;
+                }
+            }
+        }
+
+        // ---- rows i on, until one needs a band shift ----
+        for (;;) {
+            // the operands of rows i + 1 and i + 2, off this row's chain
+            uint32_t e1[K + 1];
+            load_eq_blk<K>(qeq, NWQ, PS, p.staged, nxt, w0, e1);
+            const Row nn = shfl_row(blk, nblk, (i & 31) + 2);
+            if constexpr (MODE != OVERLAP) sbeg += 1;
+
+            // Myers step, Eq from band position rbeg on: the lane's
+            // generate / propagate over its K words, and over the first
+            // K - 1 (the carry into its last word)
+            const int bs = cur.rbeg & 31;
+            uint32_t X[K], s0[K];
+            bool gen[K], prop[K];
+            bool G = false, P = true, Gl = false, Pl = true;
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                X[j] = __funnelshift_r(e[j], e[j + 1], bs) | pm[j];
+                const uint32_t ad = X[j] & pp[j];
+                s0[j] = ad + pp[j];
+                gen[j] = s0[j] < ad;
+                prop[j] = s0[j] == FULL;
+                if (j == K - 1) { Gl = G; Pl = P; }
+                G = gen[j] || (prop[j] && G);
+                P = P && prop[j];
+            }
+            // the warp's lookahead over its lanes, for a carry into the
+            // warp of 0 (sum0) and of 1 (sum0 + 1)
+            const uint32_t gm = __ballot_sync(FULL, G);
+            const uint32_t pmask = __ballot_sync(FULL, P) | gm;
+            const uint32_t sum0 = pmask + gm;
+            const uint32_t co0 = sum0 < pmask;            // carry out, in 0
+            const uint32_t co1 = co0 | (sum0 == FULL);    // carry out, in 1
+            const bool cl0 = ((sum0 ^ pmask ^ gm) >> lane) & 1u;
+            const bool cl1 = (((sum0 + 1u) ^ pmask ^ gm) >> lane) & 1u;
+            // the top HP / HN bits of the lane's last word for each carry
+            // into the warp (lane 31's go to the warp above)
+            auto top = [&](bool c) {
+                const bool ck = Gl || (Pl && c);
+                const uint32_t A = s0[K - 1] + (ck ? 1u : 0u);
+                const uint32_t D = (A ^ pp[K - 1]) | X[K - 1];
+                const uint32_t hp = pm[K - 1] | ~(D | pp[K - 1]);
+                const uint32_t hn = pp[K - 1] & D;
+                return (hp >> 31) | (hn >> 31 << 1);
+            };
+            const uint32_t word = co0 | (co1 << 1) | (top(cl0) << 2)
+                                  | (top(cl1) << 4) | ((uint32_t)part << 6);
+            if (lane == 31) xch[i & 1][warp] = word;
+            __syncthreads();
+            // the carry into this warp: lookahead over the warps' bits
+            const uint32_t xw = lane < nwarp ? xch[i & 1][lane] : 0u;
+            const uint32_t gB = __ballot_sync(FULL, xw & 1u);
+            const uint32_t pB = __ballot_sync(FULL, xw & 2u) | gB;
+            const uint32_t cB = (pB + gB) ^ pB ^ gB;
+            if constexpr (TRACK) {
+                if (i > 0) score_prev(xw, i - 1);
+            }
+            const uint32_t below = __shfl_sync(FULL, xw, (warp + 31) & 31);
+            bool c = (cB >> warp) & 1u ? cl1 : cl0;
+            uint32_t HP[K], HN[K], D0[K];
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const uint32_t A = s0[j] + (c ? 1u : 0u);
+                c = gen[j] || (prop[j] && c);
+                D0[j] = (A ^ pp[j]) | X[j];
+                HP[j] = pm[j] | ~(D0[j] | pp[j]);
+                HN[j] = pp[j] & D0[j];
+            }
+            // one-bit left shift across words: both top bits of the lower
+            // lane in one shuffle; lane 0 takes the warp below's by the
+            // carry that warp received, thread 0 hp_in / 0
+            uint32_t lo = __shfl_up_sync(FULL, (HP[K - 1] >> 31)
+                                                   | (HN[K - 1] >> 31 << 1),
+                                         1);
+            if (lane == 0)
+                lo = warp ? (below >> (2 + 2 * ((cB >> (warp - 1)) & 1u))) & 3u
+                          : (MODE == OVERLAP ? 0u : 1u);
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+                const uint32_t hps =
+                    (HP[j] << 1) | (j ? HP[j - 1] >> 31 : lo & 1u);
+                const uint32_t hns =
+                    (HN[j] << 1) | (j ? HN[j - 1] >> 31 : lo >> 1);
+                pp[j] = hns | ~(D0[j] | hps);
+                pm[j] = hps & D0[j];
+            }
+
+            // overlap/extend: the warp's part of the row score at
+            // H(qlen-1, i), reduced over the block with the next row's word
+            if constexpr (TRACK) {
+                const int n = min(max(qlen - cur.rbeg, 0), bw);
+                int d = 0;
+#pragma unroll
+                for (int j = 0; j < K; ++j) {
+                    const uint32_t m = lowmask(w0 + j, n);
+                    d += __popc(pp[j] & m) - __popc(pm[j] & m);
+                }
+                part = __reduce_add_sync(FULL, d);
+                sbeg_prev = sbeg;
+            }
+
+            store_blk<K>(out_pm, pm, w0, NW, vec);
+            store_blk<K>(out_pp, pp, w0, NW, vec);
+            out_pm += NW;
+            out_pp += NW;
+            if (lane == (i & 31)) sb = sbeg;
+            rbeg_f = cur.rbeg;
+            cur = nxt;
+            nxt = nn;
+#pragma unroll
+            for (int j = 0; j <= K; ++j) e[j] = e1[j];
+            // at a block's end: its sbeg in one store (warp 0), the next
+            // block's scalars
+            if ((i & 31) == 31) {
+                if (warp == 0) out_sbeg[i - 31 + lane] = sb;
+                blk = nblk;
+                nblk = load_row(tseq, rbegs, movxs, B, pstride, pbase,
+                                i + 33 + lane, tlen);
+            }
+            if (++i >= tlen || (MODE != OVERLAP && cur.movx > 0)) break;
+        }
+    }
+    if constexpr (TRACK) {   // the last row's score
+        if (tlen > 0) {
+            if (lane == 31) xch[tlen & 1][warp] = (uint32_t)part << 6;
+            __syncthreads();
+            score_prev(lane < nwarp ? xch[tlen & 1][lane] : 0u, tlen - 1);
+        }
+    }
+    if (warp == 0 && (tlen & 31)) {
+        const int r = (tlen - 1) & 31;
+        if (lane <= r) out_sbeg[tlen - 1 - r + lane] = sb;
+    }
+
+    store_blk<K>(p.fin_pm + (size_t)b * NW + w0, pm, w0, NW, vec);
+    store_blk<K>(p.fin_pp + (size_t)b * NW + w0, pp, w0, NW, vec);
+    if (t == 0) {
+        int *s = p.scal + (size_t)b * 4;
+        s[0] = sbeg; s[1] = smin; s[2] = ry; s[3] = rbeg_f;
+    }
+}
+
 constexpr int SEG_K = 8;   // words per lane of one segment (256 a segment)
 
 template <int MODE>
@@ -524,6 +872,33 @@ cudaError_t launch_seg(const Params &p, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// Dynamic shared memory of the block row: the staged Eq planes (padded,
+// blk_plane words each) and the band shift's copy of the row.
+template <int K>
+int blk_smem(const Params &p, int nwarp) {
+    return (p.staged ? 16 * blk_plane<K>(p.NWQ) : 0) + 8 * 32 * nwarp * K;
+}
+
+template <int K, int MODE>
+cudaError_t launch_blk(const Params &p, int nwarp, cudaStream_t stream) {
+    const int smem = blk_smem<K>(p, nwarp);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            edit_blk_rows_kernel<K, MODE>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+    }
+    edit_blk_rows_kernel<K, MODE><<<p.B, 32 * nwarp, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_blk_mode(const Params &p, int nwarp, cudaStream_t stream) {
+    if (p.mode == OVERLAP) return launch_blk<K, OVERLAP>(p, nwarp, stream);
+    if (p.mode == EXTEND) return launch_blk<K, EXTEND>(p, nwarp, stream);
+    return launch_blk<K, GLOBAL>(p, nwarp, stream);
+}
+
 template <int K, int MODE, bool FULLW>
 cudaError_t launch_k(const Params &p, cudaStream_t stream) {
     const int smem = p.staged ? 16 * p.NWQ : 0;
@@ -555,16 +930,18 @@ cudaError_t launch(const Params &p, bool aligned, cudaStream_t stream) {
 
 }  // namespace
 
-// NW above 32 * 16 = 512 words (band 16384) runs the segmented kernel;
-// seg, when not null, holds its state rows (4 * NW words a pair), which
-// the wrapper allocates when they do not fit shared memory beside the Eq
-// planes (ops/_cuda.py edit_rows).
+// The row that runs is the caller's (ops/_cuda.py edit_rows): design 0
+// the register row (NW <= 512), 1 the block row of nwarp warps of threads
+// owning K words (K 4 or 8, nwarp <= 16, 32 * nwarp * K >= NW), 2 the
+// segmented row; seg, when not null, holds the segmented row's state rows
+// (4 * NW words a pair), which the wrapper allocates when they do not fit
+// shared memory beside the Eq planes.
 extern "C" int bsa_edit_rows(const int *qeq, const int *qlen, const int *tseq,
                              const int *tlen, const int *rbegs,
                              const int *movxs, int *pm, int *pp, int *sbeg,
                              int *fin_pm, int *fin_pp, int *scal, void *seg,
                              int B, int T, int NW, int NWQ, int mode,
-                             void *stream) {
+                             int design, int K, int nwarp, void *stream) {
     const bool aligned =
         ((reinterpret_cast<uintptr_t>(pm) | reinterpret_cast<uintptr_t>(pp)
           | reinterpret_cast<uintptr_t>(fin_pm)
@@ -577,11 +954,24 @@ extern "C" int bsa_edit_rows(const int *qeq, const int *qlen, const int *tseq,
              16 * NWQ <= EQ_SMEM_MAX, static_cast<uint32_t *>(seg)};
     if (B <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (NW > 512) {
+    if (design == 1) {
+        if (nwarp < 1 || nwarp > BLK_MAXW || 32 * nwarp * K < NW)
+            return cudaErrorInvalidValue;
+        // the block row stages its Eq planes wherever they fit
+        p.staged = true;
+        if ((K == 4 ? blk_smem<4>(p, nwarp) : blk_smem<8>(p, nwarp))
+            > SMEM_MAX)
+            p.staged = false;
+        if (K == 4) return launch_blk_mode<4>(p, nwarp, s);
+        if (K == 8) return launch_blk_mode<8>(p, nwarp, s);
+        return cudaErrorInvalidValue;
+    }
+    if (design == 2) {
         if (p.mode == OVERLAP) return launch_seg<OVERLAP>(p, s);
         if (p.mode == EXTEND) return launch_seg<EXTEND>(p, s);
         return launch_seg<GLOBAL>(p, s);
     }
+    if (design != 0 || NW > 512) return cudaErrorInvalidValue;
     const int k = (NW + 31) / 32;
     if (k <= 1) return launch<1>(p, aligned, s);
     if (k <= 2) return launch<2>(p, aligned, s);

@@ -54,15 +54,38 @@
 //   only in the 16-byte chunks a job shares with its neighbours. The
 //   caller allocates the outputs without zeroing them.
 //
-// Bands past 32 x 32 - 2 = 1,022 cells take the wide row
-// (pedit_wide_rows_kernel): one warp a job and a block. A step depends only
-// on the row before, which the ring still holds, so the warp reads it back
-// from the ring and sweeps the step in slices of 32 cells, one cell a
-// lane, writing each cell through the ring as the narrow rows do; the ring
-// (a power of two >= 2 rows + 512 positions) holds the row before, the row
-// being written and what waits to be flushed. bw + 2 <= 32,512 fits the
-// block's 227 KB.
-//
+// Bands past 32 x 32 - 2 = 1,022 cells take the block row
+// (pedit_blk_rows_kernel): one block of NWARP warps (up to 32) a job, the
+// band in registers across them, since one warp would sweep a wide step in
+// turn. What bounds it: a step's instructions over the band on one SM
+// (about 50 a cell at K 4, most of them the address arithmetic and
+// predication of its loads; PERF.md §6), and the one barrier a step.
+// - Thread t of NT holds band cells i = t + NT * k, k < K (K 2 to 32:
+//   ops/_cuda.py pedit_block_geometry), two cells of both matrices' row
+//   before in each 32-bit word (16 bits a cell), so a step is one DPX
+//   three-way max (__vimax3_u16x2) and two subtractions per two cells, and
+//   a neighbour is the same word of the next thread: one shuffle per word.
+//   Across a warp boundary it comes from shared memory, where lane 31 (even
+//   steps take matrix 1 of the cell below) or lane 0 (odd steps take matrix
+//   0 of the cell above) leaves its words before the step's one block
+//   barrier, in slots alternating by the step's parity. Thread 0 and the
+//   last thread wrap around to each other's next k.
+// - Consecutive lanes hold consecutive cells, so the operand loads
+//   coalesce and the ring stores hit distinct banks. To K 8 the operands
+//   come per pair of steps as in the register rows: one y position and one
+//   new x position per cell a pair (the odd step's x is the next pair's
+//   even x), each as its base and its four counts in one word, picked by a
+//   byte permute; past K 8 (1,024 threads leave 64 registers a thread) each
+//   step loads its own.
+// - The block writes each row into a ring in shared memory (both matrices'
+//   bytes of a position side by side, a power of two >= 2 rows + 32
+//   positions: bw + 2 <= 32,512 fits the block's 227 KB); after the step's
+//   barrier the threads flush every 16 finished positions in 16-byte stores
+//   per matrix, bytewise only in the chunks a job shares with its
+//   neighbours. Plain shared stores: the barrier orders them, and nothing
+//   orders the operand loads. The zero rows before the seed and after the
+//   last step go straight to the device.
+
 // Layouts: rd / cn hold the bases, one plane of `pad` bytes per job (read
 // side) or per window (consensus side); rdm / cnm the counts, one uint32 per
 // position (byte c = count of base c), at the same offsets in words. jobs
@@ -168,17 +191,12 @@ __device__ __forceinline__ void flush_body(uint8_t *g0, uint8_t *g1,
     __syncwarp();
 }
 
-// the flush out of line: a ring of RS positions, or (the wide row) of any
+// the flush out of line, for a ring of RS positions
 template <int RS>
 __device__ __noinline__ void flush(uint8_t *g0, uint8_t *g1,
                                    const uint8_t *ring, int lo, int hi,
                                    int beg, int end, int lane) {
     flush_body(g0, g1, ring, RS - 1, lo, hi, beg, end, lane);
-}
-__device__ __noinline__ void flush_wide(uint8_t *g0, uint8_t *g1,
-                                        const uint8_t *ring, int rm, int lo,
-                                        int hi, int beg, int end, int lane) {
-    flush_body(g0, g1, ring, rm, lo, hi, beg, end, lane);
 }
 
 template <int K>
@@ -322,19 +340,43 @@ __global__ void __launch_bounds__(32 * WARPS) pedit_rows_kernel(Params p) {
     if (q > done) flush<RS>(g0, g1, ring, done, q, beg, end, lane);
 }
 
-// Positions of the wide row's ring: the power of two >= 2 rows + WIN.
-int wide_ring(int bw) {
+// ---- the block row: one block of NWARP warps a job ----
+
+// warps of the block row at most: ops/_cuda.py PEDIT_BLOCK_MAXW, which the
+// build passes as PEDIT_BLK_MAXW
+constexpr int BLK_MAXW = PEDIT_BLK_MAXW;
+
+// Positions of the block row's ring: the power of two >= 2 rows + 32.
+int blk_ring(int bw) {
     int rs = 1024;
-    while (rs < 2 * (bw + 2) + WIN) rs *= 2;
+    while (rs < 2 * (bw + 2) + 32) rs *= 2;
     return rs;
 }
 
-__global__ void __launch_bounds__(32) pedit_wide_rows_kernel(Params p,
-                                                              int RS) {
+// min(xs + ys, 255) of the cell whose x side is at position ix and y side
+// at iy (x out of [0, pad) reads base 4, counts 0; y base 0, counts 0).
+__device__ __forceinline__ int cell_score(const uint8_t *rd,
+                                          const uint32_t *rdm,
+                                          const uint8_t *cn,
+                                          const uint32_t *cnm, int pad,
+                                          int ix, int iy) {
+    int xsel, ysel;
+    uint32_t xc, yc;
+    load_pos(rd + ix, rdm + ix, (unsigned)ix < (unsigned)pad, 4, xsel, xc);
+    load_pos(cn + iy, cnm + iy, (unsigned)iy < (unsigned)pad, 0, ysel, yc);
+    return score(xsel, xc, ysel, yc);
+}
+
+template <int K>
+__global__ void __launch_bounds__(32 * BLK_MAXW) pedit_blk_rows_kernel(
+    Params p, int RS) {
+    constexpr int J = K / 2;          // words of 16x2: cells k = 2j, 2j + 1
+    constexpr bool PAIR = K <= 8;     // operands per pair of steps
     extern __shared__ __align__(16) uint8_t smem[];
-    const int lane = threadIdx.x;
-    const int j = blockIdx.x;
-    const int64_t *jb = p.jobs + (size_t)j * 8;
+    __shared__ uint32_t ex[2][BLK_MAXW][J];   // boundary words, by parity
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int NT = blockDim.x, nwarp = NT >> 5;
+    const int64_t *jb = p.jobs + (size_t)blockIdx.x * 8;
     const uint8_t *rd = p.rd + jb[0], *cn = p.cn + jb[1];
     const uint32_t *rdm = p.rdm + jb[0], *cnm = p.cnm + jb[1];
     const int pad = (int)jb[3], mlen = (int)jb[4], mbeg = (int)jb[5],
@@ -342,75 +384,224 @@ __global__ void __launch_bounds__(32) pedit_wide_rows_kernel(Params p,
     const int bw = p.bw, HW = p.HW, rowlen = bw + 2;
     const int nrows = 2 * mlen + 2;
     const int rm = RS - 1;
+    // the output stream: position x of the job's rows is ring entry x & rm
+    // (low byte matrix 0, high byte matrix 1) and device byte g0 + x / g1 +
+    // x, x counted from the 16-byte aligned address at or below the job's
+    // start; chunk c is positions [16c, 16c + 16)
     const int beg = (int)(jb[2] & 15), end = beg + nrows * rowlen;
     uint8_t *g0 = p.out0 + (jb[2] - beg), *g1 = p.out1 + (jb[2] - beg);
-    const uint8_t *ring = smem;
-    const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(smem);
-    int q = beg, done = 0;
-    auto at = [&](int x) { return ring_s + 2 * (x & rm); };
-    // after a row: the row is visible to every lane, full windows go out
-    auto next_row = [&]() {
-        q += rowlen;
-        while (q - done >= WIN) {
-            flush_wide(g0, g1, ring, rm, done, done + WIN, beg, end, lane);
-            done += WIN;
+    uint16_t *ring = reinterpret_cast<uint16_t *>(smem);
+
+    // chunks [c0, c1) from the ring (or zeros) to the device, one chunk a
+    // thread in turn: 16-byte stores where the chunk lies inside the job,
+    // bytewise at the job's two ends
+    auto put = [&](int c0, int c1, bool zero) {
+        for (int c = c0 + t; c < c1; c += NT) {
+            const int q = 16 * c;
+            const int a = max(q, beg), e = min(q + 16, end);
+            if (a == q && e == q + 16) {
+                uint4 m0 = make_uint4(0u, 0u, 0u, 0u), m1 = m0;
+                if (!zero) {
+                    const uint4 *r = reinterpret_cast<const uint4 *>(
+                        ring + (q & rm));
+                    const uint4 u = r[0], v = r[1];
+                    m0 = make_uint4(__byte_perm(u.x, u.y, 0x6420),
+                                    __byte_perm(u.z, u.w, 0x6420),
+                                    __byte_perm(v.x, v.y, 0x6420),
+                                    __byte_perm(v.z, v.w, 0x6420));
+                    m1 = make_uint4(__byte_perm(u.x, u.y, 0x7531),
+                                    __byte_perm(u.z, u.w, 0x7531),
+                                    __byte_perm(v.x, v.y, 0x7531),
+                                    __byte_perm(v.z, v.w, 0x7531));
+                }
+                *reinterpret_cast<uint4 *>(g0 + q) = m0;
+                *reinterpret_cast<uint4 *>(g1 + q) = m1;
+            } else {
+                for (int x = a; x < e; ++x) {
+                    const int v = zero ? 0 : ring[x & rm];
+                    g0[x] = (uint8_t)v;
+                    g1[x] = (uint8_t)(v >> 8);
+                }
+            }
         }
-        __syncwarp();
-    };
-    auto zero_row = [&]() {
-        for (int t = lane; t < rowlen; t += 32) st_ring(at(q + t), 0, 0);
-        next_row();
     };
 
-    // rows before the seed
-    for (int r = 0; r < 2 * mbeg; ++r) zero_row();
-    // the seed row (bytes 255 at HW in matrix 0, HW + 1 in matrix 1)
-    for (int t = lane; t < rowlen; t += 32)
-        st_ring(at(q + t), t == HW ? 255 : 0, t == HW + 1 ? 255 : 0);
-    next_row();
-    // step s writes row 2 * mbeg + 1 + s from the row before it (at q -
-    // rowlen): x side at X = mbeg + (s + 1) / 2, y side at Y = mbeg + s / 2
+    // rows before the seed: zeros, straight to the device but for the last
+    // chunk, which the ring finishes
+    const int zl = beg + 2 * mbeg * rowlen;        // the seed row's start
     const int nsteps = max(2 * (mend - mbeg) - 1, 1);
+    const int zt = zl + (1 + nsteps) * rowlen;      // the rows after the last
+    put(0, zl >> 4, true);
+    int done = zl & ~15;                            // flushed below done
+    if (t < 16 && done + t < zl) ring[(done + t) & rm] = 0;
+
+    // the thread's cells: band index i = t + NT * k (cell 1 + i of a row),
+    // k = 2j in the low half of word j, 2j + 1 in the high; the geometry
+    // puts every cell past the band in the last word
+    const bool in_lo = t + NT * (K - 2) < bw, in_hi = t + NT * (K - 1) < bw;
+    const uint32_t keep = (in_lo ? 0xFFFFu : 0u) | (in_hi ? 0xFFFF0000u : 0u);
+    // the seed row (255 at HW in matrix 0, HW + 1 in matrix 1)
+    uint32_t P0[J], P1[J];
+    int q = zl;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+        const int il = t + NT * 2 * j, ih = il + NT;
+        P0[j] = (il < bw && il + 1 == HW ? 255u : 0u)
+                | (ih < bw && ih + 1 == HW ? 255u << 16 : 0u);
+        P1[j] = (il < bw && il + 1 == HW + 1 ? 255u : 0u)
+                | (ih < bw && ih + 1 == HW + 1 ? 255u << 16 : 0u);
+        const uint32_t v = __byte_perm(P0[j], P1[j], 0x6240);
+        if (j < J - 1 || in_lo) ring[(q + 1 + il) & rm] = (uint16_t)v;
+        if (j < J - 1 || in_hi) ring[(q + 1 + ih) & rm] = (uint16_t)(v >> 16);
+    }
+    if (t == 0)
+        ring[q & rm] = (HW == 0 ? 255 : 0) | (HW == -1 ? 255 << 8 : 0);
+    if (t == 1)
+        ring[(q + bw + 1) & rm] =
+            (HW == bw + 1 ? 255 : 0) | (HW == bw ? 255 << 8 : 0);
+    // step 0 is even: it takes matrix 1 of the thread below
+    if (lane == 31) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) ex[0][warp][j] = P1[j];
+    }
+    q += rowlen;
+    __syncthreads();
+
+    // pair m of steps reads the y side at Y0 - m and the x side at X0 + m
+    // (even step) and X0 + m + 1 (odd step, the next pair's even x); past
+    // K 8 (no registers to spare at 1,024 threads) each step loads its own
+    const int X0 = mbeg, Y0 = mlen - 1 - mbeg;
+    int xsel[PAIR ? K : 1];
+    uint32_t xc[PAIR ? K : 1];
+    uint32_t ao[PAIR ? J : 1];       // the odd step's scores of the pair
+    if constexpr (PAIR) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int ix = X0 + t + NT * k;
+            load_pos(rd + ix, rdm + ix, (unsigned)ix < (unsigned)pad, 4,
+                     xsel[k], xc[k]);
+        }
+    }
+
     for (int s = 0; s < nsteps; ++s) {
-        const int odd = s & 1;
-        const int x0 = mbeg + (s + 1) / 2, y0 = mlen - 1 - (mbeg + s / 2);
-        const int pr = q - rowlen;
-        for (int i = lane; i < bw; i += 32) {
-            int xsel, ysel;
-            uint32_t xc, yc;
-            const int ix = x0 + i, iy = y0 + i;
-            load_pos(rd + ix, rdm + ix, (unsigned)ix < (unsigned)pad, 4, xsel,
-                     xc);
-            load_pos(cn + iy, cnm + iy, (unsigned)iy < (unsigned)pad, 0, ysel,
-                     yc);
-            // even: pu = matrix 0 at cell 1 + i, pv = matrix 1 at cell i;
-            // odd: one cell further
-            const int pu = ring[2 * ((pr + 1 + odd + i) & rm)];
-            const int pv = ring[2 * ((pr + odd + i) & rm) + 1];
-            const int h = __vimax3_s32(score(xsel, xc, ysel, yc), pu, pv);
-            st_ring(at(q + 1 + i), h - pv, h - pu);
+        const int odd = s & 1, m = s >> 1, par = s & 1;
+        put(done >> 4, q >> 4, false);
+        done = q & ~15;
+        // the row, word by word: the word's two scores; then even steps
+        // take pu = P0[i], pv = P1[i - 1] (from the thread below; thread 0
+        // from the last thread's cell k - 1, or the left edge), odd steps
+        // pu = P0[i + 1] (from the thread above; the last thread from thread
+        // 0's cell k + 1, or 0 past the band), pv = P1[i]. No shared store
+        // in this loop, so the compiler may overlap its words' loads
+        const int src = odd ? (warp + 1 == nwarp ? 0 : warp + 1)
+                            : (warp ? warp - 1 : nwarp - 1);
+        const uint32_t upw = s == 0 && HW == -1 ? 255u << 16 : 0u;
+        const int x0 = X0 + ((s + 1) >> 1), y0 = Y0 - m;
+        // past K 8 the cells' band indices are worked out afresh each step
+        // (and again for the ring) from a copy of NT the compiler cannot
+        // carry over: kept across steps, 2 J of them spill at 64 registers
+        int nt = NT;
+        if constexpr (!PAIR) asm volatile("" : "+r"(nt));
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            const int il = t + nt * 2 * j, ih = il + nt;
+            uint32_t a2;
+            if constexpr (PAIR) {
+                if (!odd) {   // both steps' scores: x at X0 + m and + m + 1
+                    int ae[2], an[2];
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int k = 2 * j + h, i = t + NT * k;
+                        const int ix = x0 + 1 + i, iy = y0 + i;
+                        int ysel, nsel;
+                        uint32_t yc, nc;
+                        load_pos(cn + iy, cnm + iy,
+                                 (unsigned)iy < (unsigned)pad, 0, ysel, yc);
+                        load_pos(rd + ix, rdm + ix,
+                                 (unsigned)ix < (unsigned)pad, 4, nsel, nc);
+                        ae[h] = score(xsel[k], xc[k], ysel, yc);
+                        an[h] = score(nsel, nc, ysel, yc);
+                        xsel[k] = nsel;
+                        xc[k] = nc;
+                    }
+                    a2 = __byte_perm(ae[0], ae[1], 0x5410);
+                    ao[j] = __byte_perm(an[0], an[1], 0x5410);
+                } else {
+                    a2 = ao[j];
+                }
+            } else {
+                a2 = __byte_perm(
+                    cell_score(rd, rdm, cn, cnm, pad, x0 + il, y0 + il),
+                    cell_score(rd, rdm, cn, cnm, pad, x0 + ih, y0 + ih),
+                    0x5410);
+            }
+            const uint32_t w = ex[par][src][j];
+            uint32_t pu, pv;
+            if (!odd) {
+                pv = __shfl_up_sync(FULL, P1[j], 1);
+                if (lane == 0)
+                    pv = warp ? w
+                              : __byte_perm(j ? ex[par][src][j - 1] : upw, w,
+                                            0x5432);
+                pu = P0[j];
+            } else {
+                pu = __shfl_down_sync(FULL, P0[j], 1);
+                if (lane == 31)
+                    pu = warp + 1 < nwarp
+                             ? w
+                             : __byte_perm(w, j + 1 < J ? ex[par][src][j + 1]
+                                                        : 0u, 0x5432);
+                pv = P1[j];
+            }
+            const uint32_t h = __vimax3_u16x2(a2, pu, pv);
+            P0[j] = h - pv;                 // no borrow: h >= pv per half
+            P1[j] = h - pu;
+            if (j == J - 1) P0[j] &= keep;  // cells past the band stay 0
+        }
+        // the row into the ring
+        if constexpr (!PAIR) asm volatile("" : "+r"(nt));
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            const int il = t + nt * 2 * j, ih = il + nt;
+            const uint32_t v = __byte_perm(P0[j], P1[j], 0x6240);
+            if (j < J - 1 || in_lo) ring[(q + 1 + il) & rm] = (uint16_t)v;
+            if (j < J - 1 || in_hi)
+                ring[(q + 1 + ih) & rm] = (uint16_t)(v >> 16);
         }
         // edges: matrix 0 cell 0 is 255 on odd steps, matrix 1 cell bw + 1
-        // on even ones; the other two edge bytes are 0
-        if (lane == 0) st_ring(at(q), odd ? 255 : 0, 0);
-        if (lane == 1) st_ring(at(q + bw + 1), 0, odd ? 0 : 255);
-        next_row();
+        // on even ones, the other two 0
+        if (t == 0) ring[q & rm] = odd ? 255 : 0;
+        if (t == 1) ring[(q + bw + 1) & rm] = odd ? 0 : 255 << 8;
+        // what the next step takes across threads: matrix 1 of lane 31
+        // (even) or matrix 0 of lane 0 (odd)
+        if (odd ? lane == 31 : lane == 0) {
+#pragma unroll
+            for (int j = 0; j < J; ++j)
+                ex[par ^ 1][warp][j] = odd ? P1[j] : P0[j];
+        }
+        q += rowlen;
+        __syncthreads();
     }
-    // rows after the last step, then what is left in the ring
-    for (int r = 2 * mbeg + 1 + nsteps; r < nrows; ++r) zero_row();
-    if (q > done) flush_wide(g0, g1, ring, rm, done, q, beg, end, lane);
+
+    // rows after the last step: zeros; the ring finishes the chunk at zt
+    if (t < 16 && zt + t < ((zt + 15) & ~15)) ring[(zt + t) & rm] = 0;
+    put(done >> 4, zt >> 4, false);
+    __syncthreads();
+    put(zt >> 4, (zt + 15) >> 4, false);
+    put((zt + 15) >> 4, (end + 15) >> 4, true);
 }
 
-cudaError_t launch_wide(const Params &p, cudaStream_t stream) {
-    const int rs = wide_ring(p.bw);
-    const int smem = 2 * rs;
+template <int K>
+cudaError_t launch_blk(const Params &p, int nwarp, cudaStream_t stream) {
+    const int smem = 2 * blk_ring(p.bw);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
-            pedit_wide_rows_kernel,
+            pedit_blk_rows_kernel<K>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return e;
     }
-    pedit_wide_rows_kernel<<<p.J, 32, smem, stream>>>(p, rs);
+    pedit_blk_rows_kernel<K><<<p.J, 32 * nwarp, smem, stream>>>(
+        p, blk_ring(p.bw));
     return cudaGetLastError();
 }
 
@@ -424,14 +615,16 @@ cudaError_t launch(const Params &p, cudaStream_t stream) {
 
 }  // namespace
 
-// bw above 32 * MAX_K - 2 = 1022 cells runs the wide row, whose ring
-// takes bw + 2 <= 32,512 (the wrapper raises past it, ops/_cuda.py
-// PEDIT_MAX_BW); outputs that are not 16-byte aligned are refused.
+// The row that runs is the caller's (ops/_cuda.py pedit_rows): design 0
+// the register rows (bw + 2 <= 32 * MAX_K), 1 the block row of nwarp warps
+// of threads holding K cells (K 2 to 32, every cell past the band in a
+// thread's last two, bw + 2 <= 32,512 for its ring); outputs that are not
+// 16-byte aligned are refused.
 extern "C" int bsa_pedit_rows(const uint8_t *rd, const uint8_t *cn,
                               const uint32_t *rdm, const uint32_t *cnm,
                               const int64_t *jobs, uint8_t *out0,
                               uint8_t *out1, int J, int bw, int HW,
-                              void *stream) {
+                              int design, int K, int nwarp, void *stream) {
     if (J <= 0) return 0;
     if (bw < 1) return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(out0) | reinterpret_cast<uintptr_t>(out1))
@@ -439,7 +632,19 @@ extern "C" int bsa_pedit_rows(const uint8_t *rd, const uint8_t *cn,
         return cudaErrorMisalignedAddress;
     const Params p{rd, cn, rdm, cnm, jobs, out0, out1, J, bw, HW};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (bw + 2 > 32 * MAX_K) return launch_wide(p, s);
+    if (design == 1) {
+        const int NT = 32 * nwarp;
+        if (nwarp < 1 || nwarp > BLK_MAXW || NT * K < bw
+            || NT * (K - 2) > bw || 2 * (bw + 2) + 32 > 65536)
+            return cudaErrorInvalidValue;
+        if (K == 2) return launch_blk<2>(p, nwarp, s);
+        if (K == 4) return launch_blk<4>(p, nwarp, s);
+        if (K == 8) return launch_blk<8>(p, nwarp, s);
+        if (K == 16) return launch_blk<16>(p, nwarp, s);
+        if (K == 32) return launch_blk<32>(p, nwarp, s);
+        return cudaErrorInvalidValue;
+    }
+    if (design != 0 || bw + 2 > 32 * MAX_K) return cudaErrorInvalidValue;
     const int k = (bw + 31) / 32;
     if (k <= 1) return launch<1>(p, s);
     if (k <= 2) return launch<2>(p, s);

@@ -24,8 +24,6 @@ from .banded8 import query_bytes
 WS = WORDSIZE
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
 PAIRS_PER_BLOCK = 2   # one warp per block: 256 pairs spread over 128 SMs
 SMEM_MAX = 227 * 1024   # shared memory one block may take on the H100
 # kernel A: bands of WIDE_W stripes and more run the wide row
@@ -34,16 +32,30 @@ SMEM_MAX = 227 * 1024   # shared memory one block may take on the H100
 WIDE_W = 32
 WIDE_SCALAR_BYTES = 4 * 1208   # the wide row's shared scalars (NSCALAR)
 
-# edit: bands past 512 words (16,384 bits) run the segmented row, its two
-# state rows (16 bytes a word) in shared memory beside the staged Eq planes
-# (queries up to 131,072 bases) while they fit, else in device memory
+# edit: bands past EDIT_REG_NW words (16,384 bits) run the block row (one
+# block of warps a pair, csrc/edit.cu edit_blk_rows_kernel) up to
+# EDIT_BLOCK_MAX_NW words (16 warps of threads owning 8 words); past it the
+# segmented row, its two state rows (16 bytes a word) in shared memory
+# beside the staged Eq planes (queries up to 131,072 bases) while they fit,
+# else in device memory
 EDIT_REG_NW = 512
+EDIT_BLOCK_MAX_NW = 4096
+EDIT_BLOCK_MAXW = 16
 EDIT_EQ_SMEM_MAX = 64 * 1024
-# pedit: bands past 1,022 cells run the wide row, one job a block, its
-# stream ring (2 bytes a position, a power of two >= 2 rows + 512) in shared
-# memory: bw + 2 <= 32,512
+EDIT_DESIGNS = ("register", "block", "segmented")
+# pedit: bands past PEDIT_REG_BW cells run the block row (one block of
+# warps a job, csrc/pedit.cu pedit_blk_rows_kernel), its ring of 2 bytes a
+# position (a power of two >= 2 rows + 32) in shared memory: bw + 2 <=
+# 32,512
 PEDIT_REG_BW = 1022
 PEDIT_MAX_BW = 32510
+PEDIT_BLOCK_MAXW = 32
+PEDIT_DESIGNS = ("register", "block")
+# the block rows' warp limits reach the kernels (their launch bounds and
+# shared arrays) from here, as defines
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", f"-DEDIT_BLK_MAXW={EDIT_BLOCK_MAXW}",
+              f"-DPEDIT_BLK_MAXW={PEDIT_BLOCK_MAXW}"]
 
 # kernel launches of bsa_banded8_rows (the narrow row) and of
 # bsa_banded8_wide_rows (the wide row) in this process, by emit
@@ -54,7 +66,10 @@ launches_wide_codes = 0
 launches_wide_planes = 0
 launches_wide_none = 0
 edit_launches = 0     # kernel launches of bsa_edit_rows in this process
+edit_block_launches = 0   # those of the block row
+edit_seg_launches = 0     # those of the segmented row
 pedit_launches = 0    # kernel launches of bsa_pedit_rows in this process
+pedit_block_launches = 0  # those of the block row
 build_seconds = 0.0
 _LIB = None
 _LOCK = threading.Lock()
@@ -87,10 +102,10 @@ def lib():
                 [ctypes.c_void_p] * 26 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
             so.bsa_banded8_wide_rows.restype = ctypes.c_int
             so.bsa_edit_rows.argtypes = \
-                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             so.bsa_edit_rows.restype = ctypes.c_int
             so.bsa_pedit_rows.argtypes = \
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             so.bsa_pedit_rows.restype = ctypes.c_int
             _LIB = so
     return _LIB
@@ -276,11 +291,41 @@ def banded8_rows(g, st, *, cycle_split=False, store=None, design=None,
     return out
 
 
-def edit_rows(g, ops):
+def edit_block_geometry(NW):
+    """(K, warps) of the edit kernel's block row at NW words: each thread
+    owns K consecutive words (4 up to NW 2,048, then 8), the block's warps
+    cover the band; None past EDIT_BLOCK_MAX_NW (16 warps of 8 words)."""
+    if NW > EDIT_BLOCK_MAX_NW:
+        return None
+    K = 4 if NW <= 32 * EDIT_BLOCK_MAXW * 4 else 8
+    return K, -(-NW // (32 * K))
+
+
+def edit_geometry_ok(NW, K, nwarp):
+    """Whether the block row can run NW words as nwarp warps of threads
+    owning K words each."""
+    return K in (4, 8) and 1 <= nwarp <= EDIT_BLOCK_MAXW \
+        and 32 * nwarp * K >= NW
+
+
+def edit_design(NW):
+    """The row the edit kernel runs at NW words when no design is forced."""
+    if NW <= EDIT_REG_NW:
+        return "register"
+    return "block" if NW <= EDIT_BLOCK_MAX_NW else "segmented"
+
+
+def edit_rows(g, ops, design=None, geometry=None):
     """Launch the edit kernel for geometry g (ops.edit.Geometry) on the
     operands ops (ops.edit.Operands, on one CUDA device). Returns the raw
-    outputs as device tensors: pm, pp, sbeg, fin_pm, fin_pp, scal."""
-    global edit_launches
+    outputs as device tensors: pm, pp, sbeg, fin_pm, fin_pp, scal.
+
+    `design` picks the row: None (every main path) edit_design(NW);
+    "register" (NW <= EDIT_REG_NW), "block" (NW <= EDIT_BLOCK_MAX_NW) or
+    "segmented" forces one (tests and chip_smoke.py hold them against each
+    other). `geometry` (K, warps) forces the block row's, which by default
+    is edit_block_geometry(NW) (tests and chip_smoke.py time the others)."""
+    global edit_launches, edit_block_launches, edit_seg_launches
     _, B, NWQ = ops.qeq.shape
     T, NW = g.T, g.NW
     _check("qeq", ops.qeq, (4, B, NWQ), "edit")
@@ -289,6 +334,18 @@ def edit_rows(g, ops):
         _check(name, getattr(ops, name), (B,), "edit")
     for name in ("rbegs", "movxs"):
         _check(name, getattr(ops, name), (T, B), "edit")
+    if design is None:
+        design = edit_design(NW)
+    geo = edit_block_geometry(NW) if geometry is None else tuple(geometry)
+    if design not in EDIT_DESIGNS or (design == "register"
+                                      and NW > EDIT_REG_NW) \
+            or (design == "block" and (geo is None
+                                       or not edit_geometry_ok(NW, *geo))):
+        raise ValueError(f"edit kernel: no {design!r} row at NW {NW}"
+                         + ("" if geometry is None else f", {geometry}"))
+    if geometry is not None and design != "block":
+        raise ValueError(f"edit kernel: a geometry for the {design} row")
+    K, nwarp = geo if design == "block" else (0, 0)
     dev = ops.qeq.device
 
     def empty(*shape):
@@ -296,10 +353,10 @@ def edit_rows(g, ops):
 
     out = dict(pm=empty(B, T, NW), pp=empty(B, T, NW), sbeg=empty(B, T),
                fin_pm=empty(B, NW), fin_pp=empty(B, NW), scal=empty(B, 4))
-    # past EDIT_REG_NW the segmented row keeps two state rows of 16 bytes a
-    # word in shared memory beside the staged Eq planes, or here
+    # the segmented row keeps two state rows of 16 bytes a word in shared
+    # memory beside the staged Eq planes, or here
     eq_smem = 16 * NWQ if 16 * NWQ <= EDIT_EQ_SMEM_MAX else 0
-    seg = empty(B, 4 * NW) if NW > EDIT_REG_NW \
+    seg = empty(B, 4 * NW) if design == "segmented" \
         and eq_smem + 16 * NW > SMEM_MAX else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -309,27 +366,75 @@ def edit_rows(g, ops):
             *(out[k].data_ptr() for k in ("pm", "pp", "sbeg", "fin_pm",
                                           "fin_pp", "scal")),
             None if seg is None else seg.data_ptr(),
-            B, T, NW, NWQ, mode_type(g.mode), stream)
+            B, T, NW, NWQ, mode_type(g.mode), EDIT_DESIGNS.index(design), K,
+            nwarp, stream)
     if rc != 0:
-        raise RuntimeError(f"edit kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"edit {design} kernel launch failed: CUDA error "
+                           f"{rc}")
     edit_launches += 1
+    if design == "block":
+        edit_block_launches += 1
+    elif design == "segmented":
+        edit_seg_launches += 1
     return out
 
 
-def pedit_rows(pk, out=None):
+def pedit_block_geometry(bw):
+    """(K, warps) of the pedit kernel's block row at bw cells: thread t of
+    32 * warps holds cells t + 32 * warps * k, k < K. K 4 on up to 16 warps
+    (2,048 cells), then K 8, 16 and 32 on up to PEDIT_BLOCK_MAXW (8,192,
+    16,384, 32,768 cells); below 65 cells K 2 on one warp (forced block
+    rows only). Of the geometries `chip_smoke.py --kernels` times at bw
+    1,024 to 32,510, with 6 and 64 jobs, these were the fastest (PERF.md
+    §6). Every cell past the band then lies in a thread's last two cells
+    (the kernel masks that word alone)."""
+    for K, maxw in ((2, 1), (4, 16), (8, PEDIT_BLOCK_MAXW),
+                    (16, PEDIT_BLOCK_MAXW), (32, PEDIT_BLOCK_MAXW)):
+        if 32 * maxw * K >= bw:
+            break
+    return K, -(-bw // (32 * K))
+
+
+def pedit_geometry_ok(bw, K, nwarp):
+    """Whether the block row can run bw cells as nwarp warps of threads
+    holding K cells each, every cell past the band in a thread's last
+    two."""
+    NT = 32 * nwarp
+    return K in (2, 4, 8, 16, 32) and 1 <= nwarp <= PEDIT_BLOCK_MAXW \
+        and NT * K >= bw and NT * (K - 2) <= bw
+
+
+def pedit_rows(pk, out=None, design=None, geometry=None):
     """Launch the pedit kernel on the packed jobs pk (ops.pedit.Packed, on
     one CUDA device). Returns the two flat uint8 output matrices as device
     tensors; the kernel writes every byte of them, zero outside the rows
     each job computes. `out` may give the two matrices to write into
     (contiguous uint8 of pk.total bytes each, 16-byte aligned); by default
-    they are allocated uninitialised."""
-    global pedit_launches
+    they are allocated uninitialised.
+
+    `design` picks the row: None (every main path) the register rows up to
+    PEDIT_REG_BW cells and the block row past it; "register" (bw <= 1,022)
+    or "block" forces one (tests and chip_smoke.py). `geometry` (K, warps)
+    forces the block row's, which by default is pedit_block_geometry(bw)
+    (tests and chip_smoke.py time the others)."""
+    global pedit_launches, pedit_block_launches
     if pk.bw > PEDIT_MAX_BW:
         raise NotImplementedError(
             f"pedit band of {pk.bw} cells exceeds the kernel's limit of "
-            f"{PEDIT_MAX_BW} (the wide row's ring of 2 bytes a position, a "
-            f"power of two >= 2 rows + 512, in {SMEM_MAX} bytes of shared "
+            f"{PEDIT_MAX_BW} (the block row's ring of 2 bytes a position, a "
+            f"power of two >= 2 rows + 32, in {SMEM_MAX} bytes of shared "
             f"memory)")
+    if design is None:
+        design = "register" if pk.bw <= PEDIT_REG_BW else "block"
+    if design not in PEDIT_DESIGNS or (design == "register"
+                                       and pk.bw > PEDIT_REG_BW):
+        raise ValueError(f"pedit kernel: no {design!r} row at bw {pk.bw}")
+    if geometry is not None and (design != "block"
+                                 or not pedit_geometry_ok(pk.bw, *geometry)):
+        raise ValueError(f"pedit kernel: no {design} row of geometry "
+                         f"{geometry} at bw {pk.bw}")
+    K, nwarp = ((pedit_block_geometry(pk.bw) if geometry is None
+                 else tuple(geometry)) if design == "block" else (0, 0))
     for name, dt in (("rd", torch.uint8), ("cn", torch.uint8),
                      ("rdm", torch.uint8), ("cnm", torch.uint8),
                      ("jobs", torch.int64)):
@@ -363,10 +468,14 @@ def pedit_rows(pk, out=None):
         rc = lib().bsa_pedit_rows(
             pk.rd.data_ptr(), pk.cn.data_ptr(), pk.rdm.data_ptr(),
             pk.cnm.data_ptr(), pk.jobs.data_ptr(), out0.data_ptr(),
-            out1.data_ptr(), J, pk.bw, pk.HW, stream)
+            out1.data_ptr(), J, pk.bw, pk.HW, PEDIT_DESIGNS.index(design), K,
+            nwarp, stream)
     if rc != 0:
-        raise RuntimeError(f"pedit kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"pedit {design} kernel launch failed: CUDA "
+                           f"error {rc}")
     pedit_launches += 1
+    if design == "block":
+        pedit_block_launches += 1
     return out0, out1
 
 

@@ -10,7 +10,11 @@
                                      # phase 5, the edit kernel at its
                                      # main-path shape (phase 6's first
                                      # part) and phase 7, each kernel's
-                                     # time beside its plain version's
+                                     # time beside its plain version's;
+                                     # then both block rows (phase 16
+                                     # (e), (f), (h)'s kernel checks and
+                                     # times) and the crossovers of each
+                                     # kernel's rows
     python3 chip_smoke.py --wide     # phase 1, then phases 16 and 17
 
 Phases, in order; any failure exits non-zero:
@@ -22,7 +26,9 @@ Phases, in order; any failure exits non-zero:
    engine), with their build seconds. Beside it, nvcc -Xptxas -v on each
    source: the registers, stack and spills of the main paths'
    instantiations (banded-8 codes, none and planes in both rows; edit at
-   K 2, global; pedit at K 1) and the range over every instantiation are
+   K 2, global, and every instantiation of its block row; pedit at K 1
+   and every instantiation of its block row) and the range over every
+   instantiation are
    printed at the end, and a spill in a main path's instantiation fails
    the run. Kernel A runs its wide row (csrc/banded8_wide.cu) from
    WIDE_W = 32 stripes (band 512) on and its narrow row below, so phase
@@ -145,18 +151,26 @@ Phases, in order; any failure exits non-zero:
    prints pass 1, the re-forwards, the walk, pairs/s and peak memory;
    (d) the same on 4 pairs of 24.7 kb with -M 2 -X 4 -O 4 -E 2 -Q 24 -P 1
    (band 24,064, planes and backcal), split by LAUNCH_BYTES into at least
-   2 launch groups; (e) kernel B against its plain version at NW 640
-   (overlap, 4 x 20 kb against 2 kb) and NW 1,024 (global, 32 kb), then
-   `edit_batch` -W 0 global on 16 pairs (NW 752) in at least 2 launches,
-   pair 0's TSV equal to the CPU process's; (f) kernel C against its plain
-   version on random jobs at bw 1,024, 1,534 and 4,094 into buffers of
-   0xA5, then `poa -G editbw=4096` on one window: --device cuda == cpu;
+   2 launch groups; (e) kernel B's block row and its segmented row
+   against the plain version at NW 640, 752, 1,024 and 3,200 in every
+   mode (4 queries of 20-102 kb against 500 bp), then `edit_batch` -W 0
+   global on 16 pairs (NW 752) in at least 2 launches, all of the block
+   row, pair 0's TSV equal to the CPU process's; then `edit -m kmer` on 2
+   reads of 3 kb whose first 2 kb start contigs of 136 kb: the tails after
+   the last anchor (NW past 4,096) run the segmented row, every TSV equals
+   the CPU's, and that launch equals the plain version, with its time and
+   bound; (f) kernel C's block row against
+   its plain version on random jobs at bw 1,024, 1,534, 4,094 and 32,510
+   into buffers of 0xA5, with us a step (at bw 4,094 also in every other
+   geometry), then `poa -G editbw=4096` on one window: --device
+   cuda == cpu, the block row launched;
    (g) `cat` of two 40 kb pieces overlapping by 16,384 whose second states
    overlap=8192: the join runs at band 8,192, then its 4x retry at band
    32,768 on the card; the consensus has the expected length within 0.5%
    and the retried join's CIGAR passes (c)'s checks; (h) kernel A's wide
    and narrow rows at (c)'s and (d)'s launch shapes (4,096 rows), kernel
-   B's segmented row at (e)'s, with their bounds and launches.
+   B's block row at (e)'s against the segmented row (outputs equal, us a
+   row of each), with their bounds and launches.
 17. Kernel A's two rows, tolerance 0 (also run by --wide): (a) the wide
    row against the narrow row at bands 512, 2,048, 16,384 and 32,000 on 3
    pairs (the last short: it freezes early), every emit at piecewise
@@ -348,6 +362,10 @@ def gen_cat_windows(seed):
 WIDE_ALIGN = (8, 33000, 31950)        # pairs, target length, query length
 WIDE_ONT = (4, 24700, 24000)          # the same with map-ont costs
 WIDE_EDIT = (16, 24700, 24000)        # edit -W 0: band 24,064 (NW 752)
+# edit -m kmer of reads that start contigs: the tail after the last anchor
+# aligns at a band of about 134,000 (NW past 4,096)
+WIDE_EDIT_SEG = (2, 2000, 1000, 136000)   # pairs, read length in the contig,
+                                          # the read's tail, contig length
 WIDE_CAT = (40000, 16384, 8192)       # piece length, real overlap, stated
 
 
@@ -357,6 +375,17 @@ def wide_pairs(n, tlen, qlen, seed):
     if min(len(q) for q in qs) < qlen:
         raise RuntimeError(f"a query of {tlen} bp is shorter than {qlen}")
     return [q[:qlen] for q in qs], ts
+
+
+def contig_pairs(n, tlen, junk, clen, seed):
+    """gen_pairs_fast's pairs with each query at the start of a random
+    contig of clen bases, which takes its place, and each target followed
+    by `junk` random bases."""
+    qs, ts = gen_pairs_fast(n, tlen, 0.10, seed)
+    rng = np.random.default_rng(seed + 1)
+    return ([np.concatenate([q, rng.integers(0, 4, clen - len(q))]).astype(
+        np.uint8) for q in qs], [np.concatenate(
+            [t, rng.integers(0, 4, junk)]).astype(np.uint8) for t in ts])
 
 
 def gen_wide_cat(seed):
@@ -492,8 +521,9 @@ def edit_bytes(g, ops):
 # memory), edit (K words
 # per lane, mode, vector stores; NW 64 is K 2), pedit (K cells per lane;
 # band 32 is K 1); the wide bands' kernels of phase 16: banded-8 with its
-# planes in device memory (align's defaults, overlap), the segmented edit
-# row (mode) and the wide pedit row
+# planes in device memory (align's defaults, overlap), edit's block row (K
+# words a thread, mode) and segmented row (mode), pedit's block row (K
+# cells a thread)
 PTXAS_MAIN = {
     "banded8": (((1, 0, 0, 0), "pw1 global codes"),
                 ((1, 0, 2, 0), "pw1 global none"),
@@ -508,9 +538,21 @@ PTXAS_MAIN = {
                       "mode's first pass)"),
                      ((2, 1, 1, 0), "pw2 overlap planes (map-ont)")),
     "edit": (((2, 0, 1), "K 2 global (NW 64)"),),
-    "edit_seg": (((0,), "segmented row, global"),),
+    "edit_blk": (((4, 0), "block row K 4 global (NW 752, edit -W 0 on "
+                  "24.7 kb)"),
+                 ((4, 1), "block row K 4 overlap"),
+                 ((4, 2), "block row K 4 extend"),
+                 ((8, 0), "block row K 8 global (NW 2,049-4,096)"),
+                 ((8, 1), "block row K 8 overlap"),
+                 ((8, 2), "block row K 8 extend")),
+    "edit_seg": (((0,), "segmented row, global (past NW 4,096)"),),
     "pedit": (((1,), "K 1 (band 32)"),),
-    "pedit_wide": (((), "wide row"),),
+    "pedit_blk": (((2,), "block row K 2 (bw 64 and below, forced)"),
+                  ((4,), "block row K 4 (bw 1,023-2,048; poa -G "
+                   "editbw=4096)"),
+                  ((8,), "block row K 8 (bw 2,049-8,192)"),
+                  ((16,), "block row K 16 (bw 8,193-16,384)"),
+                  ((32,), "block row K 32 (bw 16,385-32,510)")),
 }
 
 
@@ -520,8 +562,8 @@ def ptxas_report(srcs, flags):
     waits for them and returns {(kernel, template arguments): (registers,
     stack bytes, spill store bytes, spill load bytes)} for each
     instantiation of banded8_rows_kernel, banded8_wide_kernel,
-    edit_rows_kernel, edit_seg_rows_kernel, pedit_rows_kernel and
-    pedit_wide_rows_kernel."""
+    edit_rows_kernel, edit_blk_rows_kernel, edit_seg_rows_kernel,
+    pedit_rows_kernel and pedit_blk_rows_kernel."""
     tmp = tempfile.mkdtemp()
     procs = []
     for k, src in enumerate(srcs):
@@ -544,8 +586,9 @@ def ptxas_report(srcs, flags):
                 m = re.search(r"(?:Compiling entry function|Function "
                               r"properties for) '?(\S+?)'?( for|$)", line)
                 if m:
-                    k = re.search(r"\d(banded8_wide|banded8|pedit_wide|"
-                                  r"pedit|edit_seg|edit)(?:_rows)?_kernel"
+                    k = re.search(r"\d(banded8_wide|banded8|pedit_blk|"
+                                  r"pedit|edit_blk|edit_seg|edit)(?:_rows)?"
+                                  r"_kernel"
                                   r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
                     key = (k.group(1), tuple(int(x) for x in re.findall(
                         r"L[ib](\d+)E", k.group(2) or ""))) if k else None
@@ -621,6 +664,8 @@ def main() -> int:
         _cuda.launches_none = _cuda.edit_launches = _cuda.pedit_launches = 0
         _cuda.launches_wide_codes = _cuda.launches_wide_planes = 0
         _cuda.launches_wide_none = 0
+        _cuda.edit_block_launches = _cuda.edit_seg_launches = 0
+        _cuda.pedit_block_launches = 0
 
     def a_counts():
         """Kernel A's launches since reset_counts, by emit (both rows) and
@@ -858,16 +903,19 @@ def main() -> int:
                                      T=T, device=dev)
         return g, ops
 
-    def edit_compare(g, ops):
-        """Kernel vs plain on the same device tensors: rows < tlen of pm,
-        pp and sbeg, the final planes and scal whole, and the global
-        score. Returns max |diff|, the disagreements and the plain
-        version's milliseconds."""
-        rk = _cuda.edit_rows(g, ops)
+    def edit_compare(g, ops, design=None, rp=None):
+        """Kernel (the row `design` forces, else the main path's) vs plain
+        on the same device tensors: rows < tlen of pm, pp and sbeg, the
+        final planes and scal whole, and the global score. Returns max
+        |diff|, the disagreements, the plain version's milliseconds and its
+        outputs; rp, the plain outputs of an earlier call on the same
+        operands, is used instead of running it again (0.0 ms)."""
+        rk = _cuda.edit_rows(g, ops, design=design)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        rp = KE.forward_plain(g, ops)
+        if rp is None:
+            rp = KE.forward_plain(g, ops)
         e1.record()
         torch.cuda.synchronize()
         pairs = []
@@ -883,7 +931,15 @@ def main() -> int:
             worst = max(worst, d)
             if d:
                 bad.append(f"{nm} max|diff| {d}")
-        return worst, bad, e0.elapsed_time(e1)
+        return worst, bad, e0.elapsed_time(e1), rp
+
+    def edit_same(ops, ra, rb):
+        """Whether two launches on ops agree: rows < tlen of pm, pp and
+        sbeg, the final planes and scal whole."""
+        return all(torch.equal(ra[f][b, :n], rb[f][b, :n])
+                   for b, n in enumerate(ops.tlen.tolist())
+                   for f in ("pm", "pp", "sbeg")) and all(
+            torch.equal(ra[f], rb[f]) for f in ("fin_pm", "fin_pp", "scal"))
 
     def spread_targets(n, seed):
         """2 kb queries with targets cut or extended to 0.5-1.5 x 2 kb."""
@@ -933,7 +989,7 @@ def main() -> int:
         edit_err = 0
         for label, (qs5, ts5), mode, bw5, banded, traj in cases5:
             g, ops = edit_operands(qs5, ts5, mode, bw5, banded, traj)
-            err, bad, p_ms = edit_compare(g, ops)
+            err, bad, p_ms, _ = edit_compare(g, ops)
             edit_err = max(edit_err, err)
             k_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 5)
             extra = ""
@@ -962,7 +1018,7 @@ def main() -> int:
         g_e, ops_e = edit_operands([qs[i] for i in main_idx],
                                    [ts[i] for i in main_idx], MODE_GLOBAL,
                                    2048, False)
-        err, bad, edit_plain_ms = edit_compare(g_e, ops_e)
+        err, bad, edit_plain_ms, _ = edit_compare(g_e, ops_e)
         if bad:
             raise RuntimeError("phase 6 chunk: kernel disagrees with plain: "
                                + "; ".join(bad[:8]))
@@ -1132,6 +1188,174 @@ def main() -> int:
         return (windows, pedit_err, pedit_ms, pedit_plain_ms,
                 pedit_bound_ms, pedit_bound_by, main_jobs)
 
+    def edit_block_rows(label):
+        """Kernel B's block row (NW past EDIT_REG_NW, the default there)
+        and its segmented row (forced) against the plain version at NW
+        640, 752, 1,024 (K 4) and 3,200 (K 8) in every mode (4 queries of
+        20-102 kb against 500 bp, full band), tolerance 0. Returns (the block row's max error,
+        the plain version's ms at NW 1,024, the segmented row's max
+        error)."""
+        worst, plain_ms, worst_s = 0, 0.0, 0
+        for nw, L in ((640, 20000), (752, 23500), (1024, 32000),
+                      (3200, 102000)):
+            for mode in (MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND):
+                rng = np.random.default_rng(SEED + 164 + nw % 7 + mode)
+                qs = [rng.integers(0, 4, L - 13 * k).astype(np.uint8)
+                      for k in range(4)]
+                ts = [q[5000:5500 + 11 * k].copy() for k, q in enumerate(qs)]
+                g, ops = edit_operands(qs, ts, mode, 32 * nw, False)
+                before = (_cuda.edit_block_launches, _cuda.edit_seg_launches)
+                err, bad, p_ms, rp = edit_compare(g, ops)
+                err_s, bad_s, _, _ = edit_compare(g, ops, "segmented", rp)
+                del rp
+                if (_cuda.edit_block_launches, _cuda.edit_seg_launches) != (
+                        before[0] + 1, before[1] + 1):
+                    bad.append("the block and segmented rows did not launch "
+                               "once each")
+                bad += [f"segmented row: {b}" for b in bad_s]
+                worst, worst_s = max(worst, err), max(worst_s, err_s)
+                if nw == 1024:
+                    plain_ms = p_ms
+                print(f"{label} kernel B block and segmented rows NW {nw} "
+                      f"{['global', 'overlap', 'extend'][mode]}: 4 x {L} bp "
+                      f"against 500 bp, T={g.T}: max_abs_err={err} / "
+                      f"{err_s}; plain on the card {p_ms:.1f} ms")
+                if bad:
+                    raise RuntimeError(f"{label} B NW {nw} mode {mode}: "
+                                       + "; ".join(bad[:8]))
+        return worst, plain_ms, worst_s
+
+    def pedit_block_rows(label):
+        """Kernel C's block row (bw past PEDIT_REG_BW) against its plain
+        version on 6 random jobs at bw 1,024, 1,534, 4,094 and 32,510 into
+        buffers of 0xA5, tolerance 0, with its time, us a step of the
+        longest job and bound, and at bw 4,094 the same launch in every other
+        geometry. Returns a dict of the bw 4,094 row (the shape PERF.md §6
+        ranks the block row at; poa -G editbw=4096 runs bw 2,048)."""
+        rng = np.random.default_rng(SEED + 166)
+        row = dict(err=0)
+        for bw in (1024, 1534, 4094, 32510):
+            jobs = [rand_job(rng, int(rng.integers(200, 600)), bw)
+                    for _ in range(6)]
+            before = _cuda.pedit_block_launches
+            pk, err, p_ms, _ = pedit_compare(jobs)
+            if err or _cuda.pedit_block_launches != before + 1:
+                raise RuntimeError(f"{label} C bw {bw}: max|diff| {err}, "
+                                   f"block launches "
+                                   f"{_cuda.pedit_block_launches - before}")
+            k_ms = timed_ms(lambda: _cuda.pedit_rows(pk), 3)
+            steps = max(max(2 * (j.mend - j.mbeg) - 1, 1) for j in jobs)
+            p_bytes, p_cells = pedit_work(jobs)
+            b_ms, b_by, b_text = bound(p_bytes, p_cells * PEDIT_OPS_PER_CELL)
+            ck, cnw = _cuda.pedit_block_geometry(bw)
+            print(f"{label} kernel C block row bw {bw} (K {ck}, {cnw} "
+                  f"warps): 6 random jobs, max_abs_err=0; kernel {k_ms:.3f} "
+                  f"ms = {k_ms * 1e3 / steps:.4f} us a step of the longest "
+                  f"job ({steps} steps); plain on the card {p_ms:.1f} ms; "
+                  f"bound {b_ms:.4f} ms by {b_by} ({b_text})")
+            if bw == 4094:
+                row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, err=0)
+                pedit_geometries(label, pk, steps)
+        return row
+
+    def pedit_geometries(label, pk, steps):
+        """Kernel C's block row on pk in every geometry it can take (each
+        K with its least warps): outputs equal to the default's, byte for
+        byte, and the time of each."""
+        ref = _cuda.pedit_rows(pk)
+        line = []
+        for K in (2, 4, 8, 16, 32):
+            geo = (K, -(-pk.bw // (32 * K)))
+            if not _cuda.pedit_geometry_ok(pk.bw, *geo):
+                continue
+            out = _cuda.pedit_rows(pk, design="block", geometry=geo)
+            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                raise RuntimeError(f"{label} C bw {pk.bw}: geometry {geo} "
+                                   "differs from the default")
+            del out
+            g_ms = timed_ms(lambda: _cuda.pedit_rows(
+                pk, design="block", geometry=geo), 3)
+            line.append(f"K {K} x {geo[1]} warps {g_ms:.3f} ms = "
+                        f"{g_ms * 1e3 / steps:.4f} us a step")
+        print(f"{label} kernel C block row bw {pk.bw}, {pk.jobs.shape[0]} "
+              f"jobs, every geometry (outputs equal; default "
+              f"{_cuda.pedit_block_geometry(pk.bw)}): " + "; ".join(line))
+
+    def crossovers():
+        """us a row of kernel B's register and block rows (NW 128, 256,
+        384, 512; NW 128 is one warp of the block row) and of its block and
+        segmented rows (NW 752) at 8 and 256 pairs of 2,048 rows, and of
+        the block row in each geometry and the segmented row at NW 1,536,
+        2,049, 3,200 and 4,096 (outputs equal) at 8 and 64 pairs; ms a
+        launch of kernel C's register and block rows at bw 128, 512 and
+        1,022 (6 and 64 random jobs), and of the block row in every
+        geometry at bw 1,024 to 32,510."""
+        rng = np.random.default_rng(SEED + 171)
+        for n in (8, 256):
+            qs, ts = gen_pairs_fast(n, 2000, 0.10, SEED + 170)
+            line = []
+            for nw, designs in ((128, ("register", "block")),
+                                (256, ("register", "block")),
+                                (384, ("register", "block")),
+                                (512, ("register", "block")),
+                                (752, ("block", "segmented"))):
+                g, ops = edit_operands(qs, ts, MODE_GLOBAL, 32 * nw, False)
+                us = {d: timed_ms(lambda: _cuda.edit_rows(g, ops, design=d),
+                                  3) * 1e3 / g.T for d in designs}
+                line.append(f"NW {nw} " + " / ".join(
+                    f"{d} {v:.3f}" for d, v in us.items()))
+                del ops
+            print(f"kernels kernel B crossover, us a row, {n} pairs x 2 kb "
+                  f"(T=2048): " + "; ".join(line))
+        for n in (8, 64):
+            line = []
+            for nw in (1536, 2049, 3200, 4096):
+                rb_ = np.random.default_rng(SEED + 172 + nw)
+                qs = [rb_.integers(0, 4, 32 * nw - 64).astype(np.uint8)
+                      for _ in range(n)]
+                ts = [q[1000:3000].copy() for q in qs]
+                g, ops = edit_operands(qs, ts, MODE_GLOBAL, 32 * nw, False)
+                ref = _cuda.edit_rows(g, ops, design="segmented")
+                us = {"segmented": timed_ms(lambda: _cuda.edit_rows(
+                    g, ops, design="segmented"), 3) * 1e3 / g.T}
+                for K in (4, 8):
+                    geo = (K, -(-nw // (32 * K)))
+                    if not _cuda.edit_geometry_ok(nw, *geo):
+                        continue
+                    if not edit_same(ops, ref, _cuda.edit_rows(
+                            g, ops, design="block", geometry=geo)):
+                        raise RuntimeError(f"kernels: B's block row {geo} "
+                                           f"and segmented row differ at NW "
+                                           f"{nw}")
+                    us[f"block K {K} x {geo[1]}"] = timed_ms(
+                        lambda: _cuda.edit_rows(g, ops, design="block",
+                                                geometry=geo), 3) * 1e3 / g.T
+                del ref, ops
+                line.append(f"NW {nw} " + " / ".join(
+                    f"{d} {v:.3f}" for d, v in us.items()))
+            print(f"kernels kernel B past NW 1,024, us a row, {n} pairs of "
+                  f"queries filling the band x 2 kb (T=2048, outputs "
+                  f"equal): " + "; ".join(line))
+        for n in (6, 64):
+            line = []
+            for bw in (128, 512, _cuda.PEDIT_REG_BW):
+                jobs = [rand_job(rng, int(rng.integers(200, 600)), bw)
+                        for _ in range(n)]
+                pk = PE.pack_jobs(jobs, dev)
+                ms = {d: timed_ms(lambda: _cuda.pedit_rows(pk, design=d), 3)
+                      for d in ("register", "block")}
+                line.append(f"bw {bw} register {ms['register']:.3f} / block "
+                            f"{ms['block']:.3f}")
+            print(f"kernels kernel C crossover, ms a launch of {n} random "
+                  f"jobs: " + "; ".join(line))
+        for n in (6, 64):
+            for bw in (1024, 1534, 2046, 4094, 8190, 16382, 32510):
+                jobs = [rand_job(rng, int(rng.integers(200, 600)), bw)
+                        for _ in range(n)]
+                pedit_geometries("kernels", PE.pack_jobs(jobs, dev), max(
+                    max(2 * (j.mend - j.mbeg) - 1, 1) for j in jobs))
+
     def phase16(edit_cpu):
         """Wide bands, every check with tolerance 0: kernel A's planes in
         device memory against shared memory (a) and against the plain
@@ -1241,10 +1465,11 @@ def main() -> int:
             n_ms = timed_ms(lambda: _cuda.banded8_rows(
                 g, st, design="narrow"), 2)
             print(f"phase16 (b) band 32768 (W=2048) pw{pw}, 2 x 32 kb, "
-                  f"first 64 rows: planes and none == plain and the narrow "
-                  f"row == the wide row, max_abs_err=0; planes kernel, wide "
-                  f"row {k_ms:.3f} ms = {k_ms / 64:.4f} ms per row, narrow "
-                  f"row {n_ms:.3f} ms = {n_ms / 64:.4f} ms per row; plain on "
+                  f"first {g.T} rows: planes and none == plain and the "
+                  f"narrow row == the wide row, max_abs_err=0; planes "
+                  f"kernel, wide row {k_ms:.3f} ms = {k_ms / g.T:.4f} ms per "
+                  f"row, narrow row {n_ms:.3f} ms = {n_ms / g.T:.4f} ms per "
+                  f"row; plain on "
                   f"the card {p_ms:.1f} ms")
         stamp16("b")
 
@@ -1321,23 +1546,7 @@ def main() -> int:
         stamp16("d")
 
         # (e) kernel B past 512 words, then edit -W 0 on 24 kb
-        seg_err = 0
-        for label, L, bw, mode in (("overlap NW 640", 20000, 20480,
-                                    MODE_OVERLAP),
-                                   ("global NW 1024", 32000, 32768,
-                                    MODE_GLOBAL)):
-            rng = np.random.default_rng(SEED + 164 + bw % 7)
-            qs = [rng.integers(0, 4, L - 13 * k).astype(np.uint8)
-                  for k in range(4)]
-            ts = [q[5000:7000 + 11 * k].copy() for k, q in enumerate(qs)]
-            g, ops = edit_operands(qs, ts, mode, bw, False)
-            err, bad, p_ms = edit_compare(g, ops)
-            need(f"(e) {label}", err, bad)
-            seg_err, seg_plain_ms = max(seg_err, err), p_ms
-            k_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 3)
-            print(f"phase16 (e) edit kernel {label}: 4 x {L} bp against "
-                  f"2 kb, T={g.T}: max_abs_err=0; kernel {k_ms:.3f} ms, "
-                  f"plain on the card {p_ms:.1f} ms")
+        blk_err, blk_plain_ms, seg_err = edit_block_rows("phase16 (e)")
         n, tl, ql = WIDE_EDIT
         qs, ts = wide_pairs(n, tl, ql, SEED + 165)
         torch.cuda.synchronize()
@@ -1348,6 +1557,10 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = _cuda.edit_launches
+        if _cuda.edit_block_launches != launches:
+            raise RuntimeError(f"phase 16 (e): {launches} launches, "
+                               f"{_cuda.edit_block_launches} of the block "
+                               "row")
         T = roundup(tl, 128)
         per = D._launch_pairs(T, 752)
         print(f"phase16 (e) edit_batch -W 0: {n} x {tl} bp (query {ql}, NW "
@@ -1380,25 +1593,67 @@ def main() -> int:
               f"process ran {time.time() - t_cpu0:.1f}s beside the card, "
               f"{time.time() - t_wait:.1f}s of it waited for here)")
         qs_e, ts_e, per_e, cnt_e = qs, ts, per, launches
+
+        # past EDIT_BLOCK_MAX_NW: edit -m kmer of reads against the contigs
+        # they start, the tail after the last anchor on the segmented row
+        n, tl, junk, ql = WIDE_EDIT_SEG
+        qs, ts = contig_pairs(n, tl, junk, ql, SEED + 168)
+        seg_calls, real_bucket = [], D._edit_bucket
+
+        def spy(qseqs, tseqs, mode, bw, banded, device):
+            if bw // 32 > _cuda.EDIT_BLOCK_MAX_NW:
+                seg_calls.append((qseqs, tseqs, mode, bw, banded))
+            return real_bucket(qseqs, tseqs, mode, bw, banded, device)
+        D._edit_bucket = spy
+        try:
+            reset_counts()
+            t0 = time.time()
+            res = D.kmer_edit_batch(13, qs, ts, device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            cnt_s, cnt_all = _cuda.edit_seg_launches, _cuda.edit_launches
+        finally:
+            D._edit_bucket = real_bucket
+        if cnt_s < 1 or len(seg_calls) != 1:
+            raise RuntimeError(f"phase 16 (e) kmer: {cnt_s} launches of the "
+                               f"segmented row, {len(seg_calls)} buckets past "
+                               f"NW {_cuda.EDIT_BLOCK_MAX_NW}")
+        t0 = time.time()
+        res_cpu = D.kmer_edit_batch(13, qs, ts, device="cpu")
+        wall_cpu = time.time() - t0
+        for b, (rs, cg) in enumerate(res):
+            if CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b], rs, cg) \
+                    != CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b],
+                                         *res_cpu[b]):
+                raise RuntimeError(f"phase 16 (e) kmer pair {b}: the card "
+                                   "differs from the CPU")
+            if not (cg and rs.qb == 0 and rs.mat > 0.6 * tl):
+                raise RuntimeError(f"phase 16 (e) kmer pair {b}: "
+                                   f"implausible alignment {rs}")
+        sq, st_, smode, sbw, sbanded = seg_calls[0]
+        g, ops = edit_operands(sq, st_, smode, sbw, sbanded)
+        err, bad, p_ms, _ = edit_compare(g, ops)
+        if bad:
+            raise RuntimeError(f"phase 16 (e) kmer tail at NW {g.NW}, the "
+                               "segmented row: " + "; ".join(bad[:8]))
+        s_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 3)
+        b_ms, b_by, b_text = bound(edit_bytes(g, ops), int(ops.tlen.sum())
+                                   * g.NW * EDIT_OPS_PER_WORD_ROW)
+        print(f"phase16 (e) edit -m kmer: {n} reads of {tl + junk} bp whose "
+              f"first {tl} start contigs of {ql} bp: {wall:.3f}s, "
+              f"{cnt_all} edit launches, {cnt_s} of the segmented row (the "
+              f"tails after the last anchor: {len(sq)} pairs at NW {g.NW}, "
+              f"T={g.T}); every TSV == the CPU's ({wall_cpu:.1f}s); that "
+              f"launch against plain max_abs_err={err}, kernel {s_ms:.3f} "
+              f"ms = {s_ms / g.T * 1e3:.3f} us a row, plain on the card "
+              f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by} ({b_text})")
+        seg_row = dict(ms=s_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       launches=cnt_s, err=max(err, seg_err))
+        del ops
         stamp16("e")
 
         # (f) kernel C past bw 1,022, then poa -G editbw=4096
-        rng = np.random.default_rng(SEED + 166)
-        pw_row = dict(err=0)
-        for bw in (1024, 1534, 4094):
-            jobs = [rand_job(rng, int(rng.integers(200, 600)), bw)
-                    for _ in range(6)]
-            pk, err, p_ms, _ = pedit_compare(jobs)
-            need(f"(f) pedit bw {bw}", err, [f"max|diff| {err}"] if err
-                 else [])
-            k_ms = timed_ms(lambda: _cuda.pedit_rows(pk), 3)
-            p_bytes, p_cells = pedit_work(jobs)
-            b_ms, b_by, b_text = bound(p_bytes, p_cells * PEDIT_OPS_PER_CELL)
-            pw_row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by, err=max(err, pw_row["err"]))
-            print(f"phase16 (f) pedit bw {bw}: 6 random jobs, "
-                  f"max_abs_err=0; kernel {k_ms:.3f} ms, plain on the card "
-                  f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by} ({b_text})")
+        pw_row = pedit_block_rows("phase16 (f)")
         win = gen_poa_window(np.random.default_rng(SEED + 167))
         with tempfile.TemporaryDirectory() as tmp:
             fa = os.path.join(tmp, "w.fa")
@@ -1415,16 +1670,17 @@ def main() -> int:
                     raise RuntimeError(f"phase 16 (f): poa --device {d} "
                                        f"returned {rc}")
                 if d == "cuda":
-                    cnt_f = _cuda.pedit_launches
+                    cnt_f = _cuda.pedit_block_launches
                     if cnt_f < 1:
-                        raise RuntimeError("phase 16 (f): no pedit launch")
+                        raise RuntimeError("phase 16 (f): no launch of the "
+                                           "block row")
                 outs.append(buf.getvalue())
         if outs[0] != outs[1] or outs[0].count("\n") < 20:
             raise RuntimeError("phase 16 (f): poa -G editbw=4096 differs "
                                "between cuda and cpu")
         print(f"phase16 (f) poa -G editbw=4096 (pedit band 2048): --device "
               f"cuda == --device cpu ({outs[0].count(chr(10))} lines; "
-              f"{cnt_f} pedit launches on the card)")
+              f"{cnt_f} launches of the block row on the card)")
         stamp16("f")
 
         # (g) cat: a join that needs the 4x retry at band 32,768
@@ -1519,18 +1775,29 @@ def main() -> int:
         g, ops = edit_operands(qs_e[:per_e], ts_e[:per_e], MODE_GLOBAL,
                                32 * 752, False)
         ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 1)
+        s_ms = timed_ms(lambda: _cuda.edit_rows(g, ops, design="segmented"),
+                        1)
+        same = edit_same(ops, *(_cuda.edit_rows(g, ops, design=d)
+                                for d in ("block", "segmented")))
         nrows = int(ops.tlen.sum())
         b_ms, b_by, b_text = bound(edit_bytes(g, ops),
                                    nrows * g.NW * EDIT_OPS_PER_WORD_ROW)
-        print(f"phase16 (h) kernel B segmented, (e)'s launch: {per_e} pairs "
-              f"x {g.T} rows at NW {g.NW}: {ms:.3f} ms = "
-              f"{ms / g.T * 1e3:.3f} us per row, "
-              f"{nrows * g.bw / (ms / 1e3):.4g} cells/s; launches {cnt_e} in "
-              f"(e); bound {b_ms:.4f} ms by {b_by} ({b_text})")
+        bk, bnw = _cuda.edit_block_geometry(g.NW)
+        print(f"phase16 (h) kernel B block row (K {bk}, {bnw} warps), (e)'s "
+              f"launch: {per_e} pairs x {g.T} rows at NW {g.NW}: {ms:.3f} ms "
+              f"= {ms / g.T * 1e3:.3f} us a row, "
+              f"{nrows * g.bw / (ms / 1e3):.4g} cells/s; the segmented row "
+              f"{s_ms:.3f} ms = {s_ms / g.T * 1e3:.3f} us a row "
+              f"({s_ms / ms:.1f}x); outputs equal: {same}; launches {cnt_e} "
+              f"in (e); bound {b_ms:.4f} ms by {b_by} ({b_text})")
         del ops
-        rows["edit_seg"] = dict(ms=ms, plain_ms=seg_plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, launches=cnt_e, err=seg_err)
-        rows["pedit_wide"] = dict(pw_row, launches=cnt_f)
+        if not same:
+            raise RuntimeError("phase 16 (h): the block and segmented rows "
+                               "differ at (e)'s launch")
+        rows["edit_block"] = dict(ms=ms, plain_ms=blk_plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, launches=cnt_e, err=blk_err)
+        rows["edit_seg"] = seg_row
+        rows["pedit_block"] = dict(pw_row, launches=cnt_f)
         rows["worst"] = worst
         stamp16("h")
         stamp(16)
@@ -1689,12 +1956,32 @@ def main() -> int:
 
     if "--kernels" in sys.argv[1:]:
         # kernels B and C alone: phase 5, the edit kernel at its main-path
-        # shape, phase 7; each kernel's time beside its plain version's
+        # shape, phase 7; each kernel's time beside its plain version's;
+        # then both block rows (phase 16 (e), (f) and (h)'s kernel parts)
         try:
             e_err = phase5()
             qs, ts = gen_pairs(512, 2000, 0.10, SEED + 20)
             _, err, e_ms, e_plain, e_bound, e_by = edit_main_kernel(qs, ts)
             _, p_err, p_ms, p_plain, p_bound, p_by, _ = phase7()
+            edit_block_rows("kernels")
+            pedit_block_rows("kernels")
+            crossovers()
+            n, tl, ql = WIDE_EDIT
+            qs, ts = wide_pairs(n, tl, ql, SEED + 165)
+            per = D._launch_pairs(roundup(tl, 128), 752)
+            g, ops = edit_operands(qs[:per], ts[:per], MODE_GLOBAL, 32 * 752,
+                                   False)
+            ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 1)
+            s_ms = timed_ms(lambda: _cuda.edit_rows(g, ops,
+                                                    design="segmented"), 1)
+            k8_ms = timed_ms(lambda: _cuda.edit_rows(
+                g, ops, design="block", geometry=(8, 3)), 1)
+            print(f"kernels kernel B at (e)'s launch ({per} pairs x {g.T} "
+                  f"rows, NW 752): block row {ms:.3f} ms = "
+                  f"{ms / g.T * 1e3:.3f} us a row (3 warps of 8 words: "
+                  f"{k8_ms / g.T * 1e3:.3f}); segmented row "
+                  f"{s_ms:.3f} ms = {s_ms / g.T * 1e3:.3f} us a row")
+            del ops
         except RuntimeError as e:
             return fail(str(e))
         print(f"kernel edit_rows, 256 pairs x 2 kb at NW 64: {e_ms:.4f} ms, "
@@ -2584,6 +2871,14 @@ def main() -> int:
         "bound_ms": r16[key]["bound_ms"], "bound_by": r16[key]["bound_by"],
         "library_ms": None} for key in ("wide_codes", "wide_planes",
                                         "wide_none")] + [{
+        "name": "edit_block_rows", "route": "cuda",
+        "source": "bsalign_tpu_torch/csrc/edit.cu",
+        "replaces": "bsalign_tpu/ops/edit_pallas.py:88",
+        "launches": r16["edit_block"]["launches"],
+        "max_abs_err": r16["edit_block"]["err"], "ms": r16["edit_block"]["ms"],
+        "plain_ms": r16["edit_block"]["plain_ms"],
+        "bound_ms": r16["edit_block"]["bound_ms"],
+        "bound_by": r16["edit_block"]["bound_by"], "library_ms": None}, {
         "name": "edit_seg_rows", "route": "cuda",
         "source": "bsalign_tpu_torch/csrc/edit.cu",
         "replaces": "bsalign_tpu/ops/edit_pallas.py:88",
@@ -2592,15 +2887,15 @@ def main() -> int:
         "plain_ms": r16["edit_seg"]["plain_ms"],
         "bound_ms": r16["edit_seg"]["bound_ms"],
         "bound_by": r16["edit_seg"]["bound_by"], "library_ms": None}, {
-        "name": "pedit_wide_rows", "route": "cuda",
+        "name": "pedit_block_rows", "route": "cuda",
         "source": "bsalign_tpu_torch/csrc/pedit.cu",
         "replaces": "bsalign_tpu/ops/pedit_pallas.py:46",
-        "launches": r16["pedit_wide"]["launches"],
-        "max_abs_err": r16["pedit_wide"]["err"],
-        "ms": r16["pedit_wide"]["ms"],
-        "plain_ms": r16["pedit_wide"]["plain_ms"],
-        "bound_ms": r16["pedit_wide"]["bound_ms"],
-        "bound_by": r16["pedit_wide"]["bound_by"], "library_ms": None}]}))
+        "launches": r16["pedit_block"]["launches"],
+        "max_abs_err": r16["pedit_block"]["err"],
+        "ms": r16["pedit_block"]["ms"],
+        "plain_ms": r16["pedit_block"]["plain_ms"],
+        "bound_ms": r16["pedit_block"]["bound_ms"],
+        "bound_by": r16["pedit_block"]["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

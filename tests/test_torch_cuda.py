@@ -278,12 +278,13 @@ def _edit_operands(qs, ts, mode, bw, banded, device):
             KE.operands_from_numpy(*ops, T=T, device=device))
 
 
-def _assert_edit_same(g, ops):
+def _assert_edit_same(g, ops, design=None, geometry=None):
     """Kernel vs plain on rows < tlen of pm, pp and sbeg, and on the final
-    planes, smin, ry, final sbeg, final rbeg and the global score whole."""
+    planes, smin, ry, final sbeg, final rbeg and the global score whole
+    (`design` forces a row of the kernel, `geometry` the block row's)."""
     from bsalign_tpu_torch.ops import _cuda
     from bsalign_tpu_torch.ops import edit as KE
-    rk = _cuda.edit_rows(g, ops)
+    rk = _cuda.edit_rows(g, ops, design=design, geometry=geometry)
     rp = KE.forward_plain(g, ops)
     torch.cuda.synchronize()
     for b, n in enumerate(ops.tlen.tolist()):
@@ -416,7 +417,7 @@ def test_pedit_kernel_matches_plain(kind, cuda_device):
 
 
 def test_pedit_kernel_refuses_wide_band_and_cpu(cuda_device):
-    """A band past the narrow kernel's 1,022 cells (bw 1,024) runs the wide
+    """A band past the register rows' 1,022 cells (bw 1,024) runs the block
     row and equals the plain version; CPU tensors are refused."""
     from bsalign_tpu_torch.ops import _cuda
     from bsalign_tpu_torch.ops import pedit as PE
@@ -431,8 +432,8 @@ def test_pedit_kernel_refuses_wide_band_and_cpu(cuda_device):
         _cuda.pedit_rows(PE.pack_jobs([_mk_job(rng, 40, 32)], "cpu"))
 
 
-# the wide pedit row (bands past 1,022 cells) against the plain version,
-# into buffers of 0xA5, jobs with mbeg > 0 and mend < mlen
+# the pedit rows past 1,022 cells (the block row) against the plain
+# version, into buffers of 0xA5, jobs with mbeg > 0 and mend < mlen
 @pytest.mark.parametrize("bw", [1024, 2046])
 def test_pedit_wide_kernel_matches_plain(bw, cuda_device):
     from bsalign_tpu_torch.ops import _cuda
@@ -450,6 +451,34 @@ def test_pedit_wide_kernel_matches_plain(bw, cuda_device):
     p0, p1 = PE.forward_plain(pk)
     torch.cuda.synchronize()
     assert _cuda.pedit_launches == before + 1
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
+
+
+# the pedit block row at poa -G editbw=4096's band (bw 4,094: 16 warps of 8
+# cells) and at the widest band (32,510: 32 warps of 32 cells, operands per
+# step) into buffers of 0xA5, jobs with mbeg > 0 and mend < mlen; and either
+# row forced where both exist (bw 128 and 1,022)
+@pytest.mark.parametrize("bw,design", [(4094, None), (32510, None),
+                                       (128, "register"), (128, "block"),
+                                       (1022, "register"), (1022, "block")])
+def test_pedit_block_row_matches_plain(bw, design, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.ops import pedit as PE
+    from .test_torch_pedit import _mk_job
+    rng = np.random.default_rng(300 + bw)
+    jobs = [_mk_job(rng, int(rng.integers(20, 120)), bw) for _ in range(3)]
+    for j in jobs[:2]:
+        j.mbeg = max(j.mbeg, 2)
+        j.mend = max(j.mbeg + 1, min(j.mend, j.mlen - 3))
+    pk = PE.pack_jobs(jobs, cuda_device)
+    out = tuple(torch.full((pk.total,), 0xA5, dtype=torch.uint8,
+                           device=cuda_device) for _ in range(2))
+    before = _cuda.pedit_block_launches
+    k0, k1 = _cuda.pedit_rows(pk, out=out, design=design)
+    p0, p1 = PE.forward_plain(pk)
+    torch.cuda.synchronize()
+    blk = design == "block" or (design is None and bw > _cuda.PEDIT_REG_BW)
+    assert _cuda.pedit_block_launches == before + blk
     assert torch.equal(k0, p0) and torch.equal(k1, p1)
 
 
@@ -496,9 +525,10 @@ def test_edit_kernel_band_widths(nw, mode, cuda_device):
     _assert_edit_same(g, ops)
 
 
-# the segmented edit row (bands past 512 words) against the plain version,
-# with banded trajectories (rows with movx > 0), and at NW 1,024 also with
-# its state rows in device memory (the shared limit forced down)
+# bands past 512 words against the plain version, with banded trajectories
+# (rows with movx > 0): the block row (the default to NW 4,096) and the
+# segmented row forced, at NW 1,024 also with the segmented row's state rows
+# in device memory (the shared limit forced down)
 @pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
 @pytest.mark.parametrize("nw", [513, 640, 1024])
 def test_edit_segmented_kernel_matches_plain(nw, mode, cuda_device,
@@ -513,10 +543,110 @@ def test_edit_segmented_kernel_matches_plain(nw, mode, cuda_device,
     live = torch.arange(g.T, device=cuda_device).view(-1, 1) < ops.tlen
     if mode != MODE_OVERLAP:
         assert int(ops.movxs[live].max()) > 0
+    before = _cuda.edit_block_launches
     _assert_edit_same(g, ops)
+    assert _cuda.edit_block_launches == before + 1
+    _assert_edit_same(g, ops, design="segmented")
     if nw == 1024:
         monkeypatch.setattr(_cuda, "SMEM_MAX", 16 * nw - 1)
-        _assert_edit_same(g, ops)
+        _assert_edit_same(g, ops, design="segmented")
+
+
+# the block row at each boundary of its geometry (the warp count changes
+# past NW 640, 2,048 is 16 warps of 4 words, 2,049 the first of 8 words,
+# 4,096 the last the block row takes) and the segmented row past it (4,097),
+# global with a banded trajectory; queries past 64 kb read their Eq planes
+# from device memory
+@pytest.mark.parametrize("nw", [640, 641, 2048, 2049, 4096, 4097])
+def test_edit_block_row_geometry_boundaries(nw, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(5 * nw)
+    bw = 32 * nw
+    qs = [rng.integers(0, 4, bw + 700 + 17 * k).astype(np.uint8)
+          for k in range(2)]
+    ts = [rng.integers(0, 4, 100 - 11 * k).astype(np.uint8) for k in range(2)]
+    g, ops = _edit_operands(qs, ts, MODE_GLOBAL, bw, True, cuda_device)
+    geo = _cuda.edit_block_geometry(nw)
+    assert (geo is None) == (nw > _cuda.EDIT_BLOCK_MAX_NW)
+    counts = (_cuda.edit_block_launches, _cuda.edit_seg_launches)
+    _assert_edit_same(g, ops)
+    assert (_cuda.edit_block_launches - counts[0],
+            _cuda.edit_seg_launches - counts[1]) == ((0, 1) if geo is None
+                                                     else (1, 0))
+    if geo is not None:
+        assert 32 * geo[0] * geo[1] >= nw and geo[1] <= _cuda.EDIT_BLOCK_MAXW
+        _assert_edit_same(g, ops, design="segmented")
+
+
+# the block row at edit -W 0's band on 24 kb reads (NW 752, 6 warps) in
+# every mode: full band, query longer than the band in overlap
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
+def test_edit_block_row_nw752_matches_plain(mode, cuda_device):
+    rng = np.random.default_rng(752 + mode)
+    L = 24000 if mode != MODE_OVERLAP else 30000
+    qs = [rng.integers(0, 4, L - 13 * k).astype(np.uint8) for k in range(3)]
+    ts = [q[4000:4600 + 11 * k].copy() for k, q in enumerate(qs)]
+    g, ops = _edit_operands(qs, ts, mode, 32 * 752, False, cuda_device)
+    _assert_edit_same(g, ops)
+
+
+# design= forces either row where both exist: register and block at NW 64
+# and 512, both equal to the plain version
+@pytest.mark.parametrize("design", ["register", "block"])
+@pytest.mark.parametrize("nw", [64, 512])
+def test_edit_design_forced_matches_plain(nw, design, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(nw)
+    qs = [rng.integers(0, 4, 32 * nw - 40 + 9 * k).astype(np.uint8)
+          for k in range(3)]
+    ts = [q[: 200 + 13 * k].copy() for k, q in enumerate(qs)]
+    g, ops = _edit_operands(qs, ts, MODE_EXTEND, 32 * nw, False, cuda_device)
+    _assert_edit_same(g, ops, design=design)
+    with pytest.raises(ValueError, match="no 'register' row"):
+        _cuda.edit_rows(g._replace(NW=513), ops, design="register")
+
+
+# the edit block row in a geometry forced: 12 warps of 4 words and 6 or 7
+# of 8 at NW 1,536; geometries short of the band, of another K or past the
+# warp limit are refused
+@pytest.mark.parametrize("geo", [(4, 12), (8, 6), (8, 7)])
+def test_edit_block_row_geometry_forced_matches_plain(geo, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    nw = 1536
+    rng = np.random.default_rng(geo[0] * geo[1])
+    qs = [rng.integers(0, 4, 32 * nw - 50 + 9 * k).astype(np.uint8)
+          for k in range(2)]
+    ts = [q[3000:3300 + 13 * k].copy() for k, q in enumerate(qs)]
+    g, ops = _edit_operands(qs, ts, MODE_OVERLAP, 32 * nw, False, cuda_device)
+    _assert_edit_same(g, ops, design="block", geometry=geo)
+    for bad in ((4, 11), (16, 3), (8, _cuda.EDIT_BLOCK_MAXW + 1)):
+        with pytest.raises(ValueError, match="no 'block' row"):
+            _cuda.edit_rows(g, ops, design="block", geometry=bad)
+
+
+# the pedit block row in every geometry it can take at bw 4,094 (4 to 32
+# cells a thread, the least warps for each) into buffers of 0xA5; geometries
+# short of the band, with idle cells or past the warp limit are refused
+@pytest.mark.parametrize("K", [4, 8, 16, 32])
+def test_pedit_block_row_geometries_match_plain(K, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    from bsalign_tpu_torch.ops import pedit as PE
+    from .test_torch_pedit import _mk_job
+    bw = 4094
+    rng = np.random.default_rng(400 + K)
+    jobs = [_mk_job(rng, int(rng.integers(20, 120)), bw) for _ in range(3)]
+    jobs[0].mbeg = max(jobs[0].mbeg, 2)
+    pk = PE.pack_jobs(jobs, cuda_device)
+    out = tuple(torch.full((pk.total,), 0xA5, dtype=torch.uint8,
+                           device=cuda_device) for _ in range(2))
+    k0, k1 = _cuda.pedit_rows(pk, out=out, design="block",
+                              geometry=(K, -(-bw // (32 * K))))
+    p0, p1 = PE.forward_plain(pk)
+    torch.cuda.synchronize()
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
+    for bad in ((4, 31), (32, 8), (2, _cuda.PEDIT_BLOCK_MAXW + 1)):
+        with pytest.raises(ValueError, match="no block row"):
+            _cuda.pedit_rows(pk, design="block", geometry=bad)
 
 
 # kernel A with its planes in device memory against the shared store, in

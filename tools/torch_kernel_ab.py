@@ -10,7 +10,10 @@ git-ignored directory); each runs in its own process, so the same tree
 may be named several times to alternate two versions (A, B, B, A). The
 inputs are those of `chip_smoke.py`: 256 pairs x 2 kb at full band (NW 64)
 for `edit_rows`, the first realignment round of 128 seeded POA windows
-(2,560 jobs at band 32) for `pedit_rows`. They are made once with this
+(2,560 jobs at band 32) for `pedit_rows`; and the wide shapes of its phase
+16: `edit -W 0`'s launch on 24.7 kb reads (14 pairs x 24,704 rows at NW
+752) and 6 random jobs at bw 4,094 (`poa -G editbw=4096`'s band). They are
+made once with this
 repository's package and kept in its git-ignored build directory. Per
 tree it prints one JSON line: each kernel's milliseconds per launch over
 20 launches of its launcher (CUDA events, after one warm-up launch) and a
@@ -26,6 +29,8 @@ import os
 import pickle
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "bsalign_tpu_torch", "build", "kernel_ab_data.pkl")
@@ -57,9 +62,35 @@ def make_data():
         jobs += g._remsa_dev_build(ctx, 0)[0]
     fields = [(j.seqs0, j.seqs1, j.mats0, j.mats1, j.mlen, j.mbeg, j.mend,
                j.bw, j.HW) for j in jobs]
+    # the wide shapes
+    n, tl, ql = CS.WIDE_EDIT
+    qs, ts = CS.wide_pairs(n, tl, ql, CS.SEED + 165)
+    per = D._launch_pairs(roundup(tl, 128), 752)
+    wT, _, wops = D._pack_bucket(qs[:per], ts[:per], 32 * 752, False)
+    wide_fields = [wide_job(rng, int(rng.integers(200, 600)), 4094)
+                   for _ in range(6)]
     os.makedirs(os.path.dirname(DATA), exist_ok=True)
     with open(DATA, "wb") as f:
-        pickle.dump((T, ops, fields), f)
+        pickle.dump((T, ops, fields, wT, wops, wide_fields), f)
+
+
+def wide_job(rng, mlen, bw):
+    """A random pedit job's fields at band bw (chip_smoke.py's rand_job)."""
+    HW = bw // 2
+    pad = mlen + bw
+    seqs0 = np.full(pad, 4, np.uint8)
+    pos = np.sort(rng.choice(mlen, int(rng.integers(mlen // 2, mlen)),
+                             replace=False))
+    seqs0[HW + pos] = rng.integers(0, 4, len(pos))
+    seqs1 = np.zeros(pad, np.uint8)
+    seqs1[HW:HW + mlen] = rng.integers(0, 5, mlen)
+    mats0 = np.zeros((4, pad), np.uint8)
+    mats1 = np.zeros((4, pad), np.uint8)
+    mats0[:, HW:HW + mlen] = rng.integers(0, 6, (4, mlen))
+    mats1[:, HW:HW + mlen] = rng.integers(0, 251, (4, mlen))
+    mbeg = int(rng.integers(0, mlen // 4))
+    mend = int(rng.integers(mbeg + 2, mlen + 1))
+    return (seqs0, seqs1, mats0, mats1, mlen, mbeg, mend, bw, HW)
 
 
 def time_tree(tree):
@@ -73,10 +104,13 @@ def time_tree(tree):
         raise SystemExit("no CUDA device")
     dev = torch.device("cuda", 0)
     with open(DATA, "rb") as f:
-        T, ops, fields = pickle.load(f)
+        T, ops, fields, wT, wops, wide_fields = pickle.load(f)
     g = KE.Geometry(T, 64, 0)
     eops = KE.operands_from_numpy(*ops, T=T, device=dev)
     pk = PE.pack_jobs([PE.PeditJob(*x) for x in fields], dev)
+    wg = KE.Geometry(wT, 752, 0)
+    weops = KE.operands_from_numpy(*wops, T=wT, device=dev)
+    wpk = PE.pack_jobs([PE.PeditJob(*x) for x in wide_fields], dev)
 
     def timed(fn, reps=20):
         fn()
@@ -90,21 +124,29 @@ def time_tree(tree):
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
+    def edit_hash(g, eops):
+        r = _cuda.edit_rows(g, eops)
+        h = hashlib.sha1()
+        for b, n in enumerate(eops.tlen.tolist()):
+            for k in ("pm", "pp", "sbeg"):
+                h.update(r[k][b, :n].cpu().numpy().tobytes())
+        for k in ("fin_pm", "fin_pp", "scal"):
+            h.update(r[k].cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+
+    def pedit_hash(pk):
+        m0, m1 = _cuda.pedit_rows(pk)
+        return hashlib.sha1(m0.cpu().numpy().tobytes()
+                            + m1.cpu().numpy().tobytes()).hexdigest()[:12]
+
     out = {"tree": tree,
            "edit_ms": timed(lambda: _cuda.edit_rows(g, eops)),
-           "pedit_ms": timed(lambda: _cuda.pedit_rows(pk))}
-    r = _cuda.edit_rows(g, eops)
-    h = hashlib.sha1()
-    for b, n in enumerate(eops.tlen.tolist()):
-        for k in ("pm", "pp", "sbeg"):
-            h.update(r[k][b, :n].cpu().numpy().tobytes())
-    for k in ("fin_pm", "fin_pp", "scal"):
-        h.update(r[k].cpu().numpy().tobytes())
-    out["edit_hash"] = h.hexdigest()[:12]
-    m0, m1 = _cuda.pedit_rows(pk)
-    out["pedit_hash"] = hashlib.sha1(m0.cpu().numpy().tobytes()
-                                     + m1.cpu().numpy().tobytes()
-                                     ).hexdigest()[:12]
+           "pedit_ms": timed(lambda: _cuda.pedit_rows(pk)),
+           "edit_wide_ms": timed(lambda: _cuda.edit_rows(wg, weops), 3),
+           "pedit_wide_ms": timed(lambda: _cuda.pedit_rows(wpk), 5),
+           "edit_hash": edit_hash(g, eops), "pedit_hash": pedit_hash(pk),
+           "edit_wide_hash": edit_hash(wg, weops),
+           "pedit_wide_hash": pedit_hash(wpk)}
     return out
 
 
