@@ -35,14 +35,19 @@ WIDE_SCALAR_BYTES = 4 * 1208   # the wide row's shared scalars (NSCALAR)
 # edit: bands past EDIT_REG_NW words (16,384 bits) run the block row (one
 # block of warps a pair, csrc/edit.cu edit_blk_rows_kernel) up to
 # EDIT_BLOCK_MAX_NW words (16 warps of threads owning 8 words); past it the
-# segmented row, its two state rows (16 bytes a word) in shared memory
-# beside the staged Eq planes (queries up to 131,072 bases) while they fit,
-# else in device memory
+# cluster row (one thread-block cluster of such blocks a pair,
+# edit_cl_rows_kernel), the band in registers while EDIT_CLUSTER_MAX blocks
+# (EDIT_CLUSTER_MAX_NP where the card takes that non-portable size) hold
+# it, past that swept in pieces from state rows in device memory
+# (edit_cl_sweep_kernel)
 EDIT_REG_NW = 512
 EDIT_BLOCK_MAX_NW = 4096
 EDIT_BLOCK_MAXW = 16
-EDIT_EQ_SMEM_MAX = 64 * 1024
-EDIT_DESIGNS = ("register", "block", "segmented")
+EDIT_CLUSTER_MAX = 8      # the portable cluster size
+EDIT_CLUSTER_MAX_NP = 16  # the non-portable one
+EDIT_CLUSTER_WORDS = 1024  # words a block of the cluster row aims at
+EDIT_SWEEP_MAXW = 8       # warps of the sweep's blocks at most
+EDIT_DESIGNS = {"register": 0, "block": 1, "cluster": 3}
 # pedit: bands past PEDIT_REG_BW cells run the block row (one block of
 # warps a job, csrc/pedit.cu pedit_blk_rows_kernel), its ring of 2 bytes a
 # position (a power of two >= 2 rows + 32) in shared memory: bw + 2 <=
@@ -55,6 +60,7 @@ PEDIT_DESIGNS = ("register", "block")
 # shared arrays) from here, as defines
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", f"-DEDIT_BLK_MAXW={EDIT_BLOCK_MAXW}",
+              f"-DEDIT_SWP_MAXW={EDIT_SWEEP_MAXW}",
               f"-DPEDIT_BLK_MAXW={PEDIT_BLOCK_MAXW}"]
 
 # kernel launches of bsa_banded8_rows (the narrow row) and of
@@ -67,7 +73,8 @@ launches_wide_planes = 0
 launches_wide_none = 0
 edit_launches = 0     # kernel launches of bsa_edit_rows in this process
 edit_block_launches = 0   # those of the block row
-edit_seg_launches = 0     # those of the segmented row
+edit_cluster_launches = 0  # those of the cluster row
+edit_sweep_launches = 0    # those of them that sweep (past its registers)
 pedit_launches = 0    # kernel launches of bsa_pedit_rows in this process
 pedit_block_launches = 0  # those of the block row
 build_seconds = 0.0
@@ -102,8 +109,14 @@ def lib():
                 [ctypes.c_void_p] * 26 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
             so.bsa_banded8_wide_rows.restype = ctypes.c_int
             so.bsa_edit_rows.argtypes = \
-                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 \
+                + [ctypes.c_void_p]
             so.bsa_edit_rows.restype = ctypes.c_int
+            so.bsa_edit_cluster_occupancy.argtypes = [ctypes.c_int] * 5
+            so.bsa_edit_cluster_occupancy.restype = ctypes.c_int
+            so.bsa_edit_cluster_floor.argtypes = \
+                [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            so.bsa_edit_cluster_floor.restype = ctypes.c_int
             so.bsa_pedit_rows.argtypes = \
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             so.bsa_pedit_rows.restype = ctypes.c_int
@@ -308,11 +321,119 @@ def edit_geometry_ok(NW, K, nwarp):
         and 32 * nwarp * K >= NW
 
 
+def edit_cluster_geometry(NW, max_blocks=EDIT_CLUSTER_MAX, pairs=1,
+                          sms=132):
+    """(K, warps, C, pieces) of the edit kernel's cluster row at NW words
+    for `pairs` pairs on a card of `sms` SMs. In registers (pieces 1): C
+    blocks, at least the fewest (and 2) whose blocks of up to
+    EDIT_BLOCK_MAXW warps of 8 words hold the band, more while each keeps
+    EDIT_CLUSTER_WORDS words and the pairs' clusters fit the SMs, at most
+    max_blocks (the fastest measured, PERF.md §6: with few pairs more
+    blocks of about 1,024 words, with many the fewest); each block's share
+    held as the block row would hold it (K 4 to 2,048 words, then 8), one
+    block where the band fits one warp's. Past max_blocks blocks of 16
+    warps of 8 words, the sweep: the fewest pieces of 8 words a thread
+    that max_blocks blocks of EDIT_SWEEP_MAXW warps hold, and the blocks
+    of that size the band needs."""
+    full = 32 * EDIT_BLOCK_MAXW * 8        # words of a block of 8 a thread
+    C = max(2, -(-NW // full))
+    if C <= max_blocks:
+        C = max(C, min(max_blocks, sms // max(pairs, 1),
+                       -(-NW // EDIT_CLUSTER_WORDS)))
+        K, nwarp = edit_block_geometry(-(-NW // C))
+        return K, nwarp, -(-NW // (32 * nwarp * K)), 1
+    piece = 32 * EDIT_SWEEP_MAXW * 8
+    pieces = -(-NW // (max_blocks * piece))
+    return 8, EDIT_SWEEP_MAXW, -(-NW // (pieces * piece)), pieces
+
+
+def edit_cluster_geometry_ok(NW, K, nwarp, C, pieces=1):
+    """Whether the cluster row can run NW words as C blocks of nwarp warps
+    of threads owning `pieces` pieces of K words each (the sweep where
+    pieces > 1: K 8, at most EDIT_SWEEP_MAXW warps), every block holding
+    words of the band."""
+    S = 32 * nwarp * K * pieces
+    return K in (4, 8) and 1 <= nwarp <= EDIT_BLOCK_MAXW \
+        and 1 <= C <= EDIT_CLUSTER_MAX_NP and pieces >= 1 \
+        and (pieces == 1 or (K == 8 and nwarp <= EDIT_SWEEP_MAXW)) \
+        and C * S >= NW > (C - 1) * S
+
+
+_cluster_geo = {}
+
+
+def edit_cluster_default(NW, pairs, dev):
+    """The cluster row's geometry at NW words for `pairs` pairs on CUDA
+    device `dev`: edit_cluster_geometry with the card's largest cluster and
+    its SMs, fewer blocks a cluster while the card cannot hold the pairs'
+    clusters at once (edit_cluster_occupancy) and the band allows."""
+    idx = torch.device(dev).index
+    key = (NW, pairs, torch.cuda.current_device() if idx is None else idx)
+    if key not in _cluster_geo:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        least = max(2, -(-NW // (32 * EDIT_BLOCK_MAXW * 8)))
+        maxc = edit_cluster_max(dev)
+        while True:
+            geo = edit_cluster_geometry(NW, maxc, pairs, sms)
+            if geo[3] > 1 or geo[2] <= least:
+                break
+            with torch.cuda.device(dev):
+                if edit_cluster_occupancy(*geo[:3]) >= pairs:
+                    break
+            maxc = geo[2] - 1
+        _cluster_geo[key] = geo
+    return _cluster_geo[key]
+
+
+_cluster_max = {}
+
+
+def edit_cluster_max(dev):
+    """The most blocks a cluster row takes on CUDA device `dev`:
+    EDIT_CLUSTER_MAX_NP where the card holds such a cluster of 16 warps of
+    8 words (cudaOccupancyMaxActiveClusters), else EDIT_CLUSTER_MAX."""
+    idx = torch.device(dev).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _cluster_max:
+        with torch.cuda.device(idx):
+            n = edit_cluster_occupancy(8, EDIT_BLOCK_MAXW,
+                                       EDIT_CLUSTER_MAX_NP)
+        _cluster_max[idx] = EDIT_CLUSTER_MAX_NP if n > 0 \
+            else EDIT_CLUSTER_MAX
+    return _cluster_max[idx]
+
+
+def edit_cluster_occupancy(K, nwarp, C, NW=None, NWQ=0):
+    """Clusters of the cluster row (C blocks of nwarp warps of K words in
+    registers, the shared memory of a pair of NW words and NWQ query words)
+    that the current card holds at once, or minus the CUDA error with which
+    it refuses that size."""
+    NW = C * 32 * nwarp * K if NW is None else NW
+    return lib().bsa_edit_cluster_occupancy(K, nwarp, C, NW, NWQ)
+
+
+def edit_cluster_floor(C, nwarp, pairs, rows, dev):
+    """Launch the cluster exchange alone (csrc/edit.cu edit_cl_floor_kernel:
+    per row one word into each block of the cluster and one cluster
+    barrier) on `pairs` clusters of C blocks of nwarp warps: a probe of the
+    exchange's floor for chip_smoke.py, on no main path."""
+    out = torch.empty(C * pairs, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib().bsa_edit_cluster_floor(C, nwarp, pairs, rows,
+                                          out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"edit cluster floor launch failed: CUDA error "
+                           f"{rc}")
+    return out
+
+
 def edit_design(NW):
-    """The row the edit kernel runs at NW words when no design is forced."""
+    """The row the edit kernel runs at NW words when no design is
+    forced."""
     if NW <= EDIT_REG_NW:
         return "register"
-    return "block" if NW <= EDIT_BLOCK_MAX_NW else "segmented"
+    return "block" if NW <= EDIT_BLOCK_MAX_NW else "cluster"
 
 
 def edit_rows(g, ops, design=None, geometry=None):
@@ -322,10 +443,13 @@ def edit_rows(g, ops, design=None, geometry=None):
 
     `design` picks the row: None (every main path) edit_design(NW);
     "register" (NW <= EDIT_REG_NW), "block" (NW <= EDIT_BLOCK_MAX_NW) or
-    "segmented" forces one (tests and chip_smoke.py hold them against each
-    other). `geometry` (K, warps) forces the block row's, which by default
-    is edit_block_geometry(NW) (tests and chip_smoke.py time the others)."""
-    global edit_launches, edit_block_launches, edit_seg_launches
+    "cluster" forces one (tests and chip_smoke.py hold them against each
+    other). `geometry` forces the block row's (K, warps), by default
+    edit_block_geometry(NW), or the cluster row's (K, warps, C) or (K,
+    warps, C, pieces), by default edit_cluster_default(NW, pairs) (tests
+    and chip_smoke.py time the others)."""
+    global edit_launches, edit_block_launches, edit_cluster_launches
+    global edit_sweep_launches
     _, B, NWQ = ops.qeq.shape
     T, NW = g.T, g.NW
     _check("qeq", ops.qeq, (4, B, NWQ), "edit")
@@ -334,30 +458,38 @@ def edit_rows(g, ops, design=None, geometry=None):
         _check(name, getattr(ops, name), (B,), "edit")
     for name in ("rbegs", "movxs"):
         _check(name, getattr(ops, name), (T, B), "edit")
+    dev = ops.qeq.device
     if design is None:
         design = edit_design(NW)
-    geo = edit_block_geometry(NW) if geometry is None else tuple(geometry)
-    if design not in EDIT_DESIGNS or (design == "register"
-                                      and NW > EDIT_REG_NW) \
-            or (design == "block" and (geo is None
-                                       or not edit_geometry_ok(NW, *geo))):
+    if design not in EDIT_DESIGNS:
+        raise ValueError(f"edit kernel: no {design!r} row")
+    if geometry is not None:
+        geo = tuple(geometry) + ((1,) if design == "cluster"
+                                 and len(geometry) == 3 else ())
+    elif design == "cluster":
+        geo = edit_cluster_default(NW, B, dev)
+    else:
+        geo = edit_block_geometry(NW)
+    if (design == "register" and NW > EDIT_REG_NW) \
+            or (design == "block" and (geo is None or len(geo) != 2
+                                       or not edit_geometry_ok(NW, *geo))) \
+            or (design == "cluster" and (
+                len(geo) != 4 or not edit_cluster_geometry_ok(NW, *geo))):
         raise ValueError(f"edit kernel: no {design!r} row at NW {NW}"
                          + ("" if geometry is None else f", {geometry}"))
-    if geometry is not None and design != "block":
-        raise ValueError(f"edit kernel: a geometry for the {design} row")
-    K, nwarp = geo if design == "block" else (0, 0)
-    dev = ops.qeq.device
+    if geometry is not None and design == "register":
+        raise ValueError("edit kernel: a geometry for the register row")
+    K, nwarp, ncl, pieces = (geo + (0, 0))[:4] if design != "register" \
+        else (0, 0, 0, 0)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
     out = dict(pm=empty(B, T, NW), pp=empty(B, T, NW), sbeg=empty(B, T),
                fin_pm=empty(B, NW), fin_pp=empty(B, NW), scal=empty(B, 4))
-    # the segmented row keeps two state rows of 16 bytes a word in shared
-    # memory beside the staged Eq planes, or here
-    eq_smem = 16 * NWQ if 16 * NWQ <= EDIT_EQ_SMEM_MAX else 0
-    seg = empty(B, 4 * NW) if design == "segmented" \
-        and eq_smem + 16 * NW > SMEM_MAX else None
+    # the sweep's two state rows, 4 planes of its cluster's words a pair
+    state = empty(B, 4 * ncl * 32 * nwarp * pieces * K) if pieces > 1 \
+        else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib().bsa_edit_rows(
@@ -365,17 +497,18 @@ def edit_rows(g, ops, design=None, geometry=None):
             ops.tlen.data_ptr(), ops.rbegs.data_ptr(), ops.movxs.data_ptr(),
             *(out[k].data_ptr() for k in ("pm", "pp", "sbeg", "fin_pm",
                                           "fin_pp", "scal")),
-            None if seg is None else seg.data_ptr(),
-            B, T, NW, NWQ, mode_type(g.mode), EDIT_DESIGNS.index(design), K,
-            nwarp, stream)
+            None if state is None else state.data_ptr(),
+            B, T, NW, NWQ, mode_type(g.mode), EDIT_DESIGNS[design], K,
+            nwarp, ncl, pieces, stream)
     if rc != 0:
         raise RuntimeError(f"edit {design} kernel launch failed: CUDA error "
                            f"{rc}")
     edit_launches += 1
     if design == "block":
         edit_block_launches += 1
-    elif design == "segmented":
-        edit_seg_launches += 1
+    elif design == "cluster":
+        edit_cluster_launches += 1
+        edit_sweep_launches += pieces > 1
     return out
 
 

@@ -16,9 +16,13 @@ memory, in the two-pass mode of the driver.
 
 N is kept as code 4. The JAX package's oracle refuses an N that it reaches
 (an IndexError in its forward for an N in the target's window, in its
-traceback for an N in the query on the path); the port refuses the same
-joins with a ValueError that names the piece: before the launch for the
-target side, after the walk for the query side.
+traceback for an N in the query at a base it scores: of an M op, the last
+of an I op, the one before a D op); the port refuses the same joins with a
+ValueError that names the piece: before the launch for the target side,
+after the walk for the query side. An N inside an insertion run, away from
+its last base, is consumed unscored by both; with a gap open of 0 (-O 0)
+the oracle takes each inserted base as a run of its own and scores them
+all, and so does the check.
 """
 from __future__ import annotations
 
@@ -58,11 +62,15 @@ def revise_seq_joint_point(cigars: List[int], qe: int, te: int
     return qe - qq, te - tt
 
 
-def _walked_query(rs: AlnResult, cigars: List[int]) -> List[int]:
+def _walked_query(rs: AlnResult, cigars: List[int],
+                  gap_open: bool = True) -> List[int]:
     """Query positions the oracle's traceback scores against the target
-    (bsalign_tpu/oracle/banded8.py backcal): every base an M or I op
-    consumes, and the base before each D op. It is a superset of the
-    oracle's: a run of insertions is scored at its first step only."""
+    (bsalign_tpu/oracle/banded8.py backcal): every base an M op consumes,
+    the base before each D op, and of each I op its last base (the
+    traceback scores a run of insertions at the base it starts from, then
+    consumes the run by the score identity) or, without a gap open cost,
+    every base (the identity then holds for a run of one, so each base is
+    a run of its own)."""
     out = []
     q = rs.qb
     for cg in cigars:
@@ -70,9 +78,12 @@ def _walked_query(rs: AlnResult, cigars: List[int]) -> List[int]:
         if op == 2:
             if q > 0:
                 out.append(q - 1)
+            continue
+        if op == 1 and gap_open:
+            out.append(q + ln - 1)
         else:
             out.extend(range(q, q + ln))
-            q += ln
+        q += ln
     return out
 
 
@@ -86,7 +97,7 @@ def _align(qseq: np.ndarray, tseq: np.ndarray, mtx, O: int, E: int, name,
     [(rs, cigars)] = align_batch([qseq], [tseq], MODE_OVERLAP,
                                  roundup(len(qseq), WORDSIZE), mtx, O, E, 0,
                                  0, device=device)
-    if np.any(qseq[_walked_query(rs, cigars)] > 3):
+    if np.any(qseq[_walked_query(rs, cigars, O != 0)] > 3):
         raise ValueError(f"cat: the join of piece {name!r} aligns it "
                          "against an N of the sequence built so far")
     return rs, cigars

@@ -11,10 +11,11 @@
                                      # main-path shape (phase 6's first
                                      # part) and phase 7, each kernel's
                                      # time beside its plain version's;
-                                     # then both block rows (phase 16
-                                     # (e), (f), (h)'s kernel checks and
-                                     # times) and the crossovers of each
-                                     # kernel's rows
+                                     # then both block rows and B's
+                                     # cluster row (phase 16 (e), (f),
+                                     # (h)'s kernel checks and times), the
+                                     # cluster exchange's floor and the
+                                     # crossovers of each kernel's rows
     python3 chip_smoke.py --wide     # phase 1, then phases 16 and 17
 
 Phases, in order; any failure exits non-zero:
@@ -26,9 +27,9 @@ Phases, in order; any failure exits non-zero:
    engine), with their build seconds. Beside it, nvcc -Xptxas -v on each
    source: the registers, stack and spills of the main paths'
    instantiations (banded-8 codes, none and planes in both rows; edit at
-   K 2, global, and every instantiation of its block row; pedit at K 1
-   and every instantiation of its block row) and the range over every
-   instantiation are
+   K 2, global, and every instantiation of its block and cluster rows and
+   of the cluster row's sweep; pedit at K 1 and every instantiation of its
+   block row) and the range over every instantiation are
    printed at the end, and a spill in a main path's instantiation fails
    the run. Kernel A runs its wide row (csrc/banded8_wide.cu) from
    WIDE_W = 32 stripes (band 512) on and its narrow row below, so phase
@@ -151,15 +152,20 @@ Phases, in order; any failure exits non-zero:
    prints pass 1, the re-forwards, the walk, pairs/s and peak memory;
    (d) the same on 4 pairs of 24.7 kb with -M 2 -X 4 -O 4 -E 2 -Q 24 -P 1
    (band 24,064, planes and backcal), split by LAUNCH_BYTES into at least
-   2 launch groups; (e) kernel B's block row and its segmented row
+   2 launch groups; (e) kernel B's block row and its cluster row (forced)
    against the plain version at NW 640, 752, 1,024 and 3,200 in every
-   mode (4 queries of 20-102 kb against 500 bp), then `edit_batch` -W 0
-   global on 16 pairs (NW 752) in at least 2 launches, all of the block
-   row, pair 0's TSV equal to the CPU process's; then `edit -m kmer` on 2
-   reads of 3 kb whose first 2 kb start contigs of 136 kb: the tails after
-   the last anchor (NW past 4,096) run the segmented row, every TSV equals
-   the CPU's, and that launch equals the plain version, with its time and
-   bound; (f) kernel C's block row against
+   mode (4 queries of 20-102 kb against 500 bp); the cluster row against
+   the plain version at NW 4,097, 4,192 and 8,192 in every mode, banded
+   (shifts) and on a trajectory whose shifts cross blocks and reset the
+   band, at NW 32,768 (8 blocks) and 65,537 (past the registers: the
+   sweep) on few rows; then `edit_batch` -W 0 global on 16 pairs (NW 752)
+   in at least 2 launches, all of the block row, pair 0's TSV equal to the
+   CPU process's; then `edit -m kmer` on 3 reads of 3 kb whose first 2 kb
+   start contigs of 136 kb, 136 kb and 2.3 Mb: the tails after the last
+   anchor run the cluster row (NW 4,192) and its sweep (NW past 65,536),
+   every TSV equals that of `edit --device cpu -m kmer` (a process of its
+   own from the end of phase 1 on), and each launch equals the plain
+   version, with its time and bound; (f) kernel C's block row against
    its plain version on random jobs at bw 1,024, 1,534, 4,094 and 32,510
    into buffers of 0xA5, with us a step (at bw 4,094 also in every other
    geometry), then `poa -G editbw=4096` on one window: --device
@@ -169,8 +175,8 @@ Phases, in order; any failure exits non-zero:
    32,768 on the card; the consensus has the expected length within 0.5%
    and the retried join's CIGAR passes (c)'s checks; (h) kernel A's wide
    and narrow rows at (c)'s and (d)'s launch shapes (4,096 rows), kernel
-   B's block row at (e)'s against the segmented row (outputs equal, us a
-   row of each), with their bounds and launches.
+   B's block row at (e)'s against the cluster row forced (outputs equal,
+   us a row of each), with their bounds and launches.
 17. Kernel A's two rows, tolerance 0 (also run by --wide): (a) the wide
    row against the narrow row at bands 512, 2,048, 16,384 and 32,000 on 3
    pairs (the last short: it freezes early), every emit at piecewise
@@ -363,9 +369,10 @@ WIDE_ALIGN = (8, 33000, 31950)        # pairs, target length, query length
 WIDE_ONT = (4, 24700, 24000)          # the same with map-ont costs
 WIDE_EDIT = (16, 24700, 24000)        # edit -W 0: band 24,064 (NW 752)
 # edit -m kmer of reads that start contigs: the tail after the last anchor
-# aligns at a band of about 134,000 (NW past 4,096)
-WIDE_EDIT_SEG = (2, 2000, 1000, 136000)   # pairs, read length in the contig,
-                                          # the read's tail, contig length
+# aligns at a band of about the contig's length: NW 4,192 (the cluster row
+# in registers) and about 71,800 (past them: the sweep)
+WIDE_EDIT_KMER = (2000, 1000, (136000, 136000, 2300000))   # read length in
+                                       # the contig, the read's tail, contigs
 WIDE_CAT = (40000, 16384, 8192)       # piece length, real overlap, stated
 
 
@@ -377,14 +384,14 @@ def wide_pairs(n, tlen, qlen, seed):
     return [q[:qlen] for q in qs], ts
 
 
-def contig_pairs(n, tlen, junk, clen, seed):
-    """gen_pairs_fast's pairs with each query at the start of a random
-    contig of clen bases, which takes its place, and each target followed
-    by `junk` random bases."""
-    qs, ts = gen_pairs_fast(n, tlen, 0.10, seed)
+def contig_pairs(tlen, junk, clens, seed):
+    """gen_pairs_fast's pairs, one per contig length in clens, with each
+    query at the start of a random contig of that length, which takes its
+    place, and each target followed by `junk` random bases."""
+    qs, ts = gen_pairs_fast(len(clens), tlen, 0.10, seed)
     rng = np.random.default_rng(seed + 1)
-    return ([np.concatenate([q, rng.integers(0, 4, clen - len(q))]).astype(
-        np.uint8) for q in qs], [np.concatenate(
+    return ([np.concatenate([q, rng.integers(0, 4, c - len(q))]).astype(
+        np.uint8) for q, c in zip(qs, clens)], [np.concatenate(
             [t, rng.integers(0, 4, junk)]).astype(np.uint8) for t in ts])
 
 
@@ -521,9 +528,9 @@ def edit_bytes(g, ops):
 # memory), edit (K words
 # per lane, mode, vector stores; NW 64 is K 2), pedit (K cells per lane;
 # band 32 is K 1); the wide bands' kernels of phase 16: banded-8 with its
-# planes in device memory (align's defaults, overlap), edit's block row (K
-# words a thread, mode) and segmented row (mode), pedit's block row (K
-# cells a thread)
+# planes in device memory (align's defaults, overlap), edit's block row and
+# cluster row (K words a thread, mode) and the cluster row's sweep (K,
+# mode), pedit's block row (K cells a thread)
 PTXAS_MAIN = {
     "banded8": (((1, 0, 0, 0), "pw1 global codes"),
                 ((1, 0, 2, 0), "pw1 global none"),
@@ -545,7 +552,16 @@ PTXAS_MAIN = {
                  ((8, 0), "block row K 8 global (NW 2,049-4,096)"),
                  ((8, 1), "block row K 8 overlap"),
                  ((8, 2), "block row K 8 extend")),
-    "edit_seg": (((0,), "segmented row, global (past NW 4,096)"),),
+    "edit_cl": (((4, 0), "cluster row K 4 global"),
+                ((4, 1), "cluster row K 4 overlap"),
+                ((4, 2), "cluster row K 4 extend"),
+                ((8, 0), "cluster row K 8 global"),
+                ((8, 1), "cluster row K 8 overlap"),
+                ((8, 2), "cluster row K 8 extend (edit -m kmer's tails)")),
+    "edit_cl_sweep": (((8, 0), "cluster row's sweep global"),
+                      ((8, 1), "cluster row's sweep overlap"),
+                      ((8, 2), "cluster row's sweep extend (edit -m kmer's "
+                       "tails past 65,536 words)")),
     "pedit": (((1,), "K 1 (band 32)"),),
     "pedit_blk": (((2,), "block row K 2 (bw 64 and below, forced)"),
                   ((4,), "block row K 4 (bw 1,023-2,048; poa -G "
@@ -562,8 +578,8 @@ def ptxas_report(srcs, flags):
     waits for them and returns {(kernel, template arguments): (registers,
     stack bytes, spill store bytes, spill load bytes)} for each
     instantiation of banded8_rows_kernel, banded8_wide_kernel,
-    edit_rows_kernel, edit_blk_rows_kernel, edit_seg_rows_kernel,
-    pedit_rows_kernel and pedit_blk_rows_kernel."""
+    edit_rows_kernel, edit_blk_rows_kernel, edit_cl_rows_kernel,
+    edit_cl_sweep_kernel, pedit_rows_kernel and pedit_blk_rows_kernel."""
     tmp = tempfile.mkdtemp()
     procs = []
     for k, src in enumerate(srcs):
@@ -587,8 +603,8 @@ def ptxas_report(srcs, flags):
                               r"properties for) '?(\S+?)'?( for|$)", line)
                 if m:
                     k = re.search(r"\d(banded8_wide|banded8|pedit_blk|"
-                                  r"pedit|edit_blk|edit_seg|edit)(?:_rows)?"
-                                  r"_kernel"
+                                  r"pedit|edit_blk|edit_cl_sweep|edit_cl|"
+                                  r"edit)(?:_rows)?_kernel"
                                   r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
                     key = (k.group(1), tuple(int(x) for x in re.findall(
                         r"L[ib](\d+)E", k.group(2) or ""))) if k else None
@@ -616,7 +632,8 @@ def ptxas_check(ptxas_wait):
     ptxas = ptxas_wait()
     for kern, mains in PTXAS_MAIN.items():
         for args, nm in mains:
-            kname = kern + ("_kernel" if kern == "banded8_wide"
+            kname = kern + ("_kernel" if kern in ("banded8_wide",
+                                                  "edit_cl_sweep")
                             else "_rows_kernel")
             if (kern, args) not in ptxas:
                 return f"ptxas -v names no {kname} {args}"
@@ -664,7 +681,8 @@ def main() -> int:
         _cuda.launches_none = _cuda.edit_launches = _cuda.pedit_launches = 0
         _cuda.launches_wide_codes = _cuda.launches_wide_planes = 0
         _cuda.launches_wide_none = 0
-        _cuda.edit_block_launches = _cuda.edit_seg_launches = 0
+        _cuda.edit_block_launches = _cuda.edit_cluster_launches = 0
+        _cuda.edit_sweep_launches = 0
         _cuda.pedit_block_launches = 0
 
     def a_counts():
@@ -742,11 +760,35 @@ def main() -> int:
         atexit.register(lambda: proc.poll() is None and proc.kill())
         return proc, time.time()
 
+    def start_kmer_cpu():
+        """Phase 16's CPU reference of `edit -m kmer` on its reads against
+        contigs, started now in a process of its own (one thread, lowest
+        priority): the plain forward at the 2.3 Mb contig's band takes
+        minutes."""
+        tmp = tempfile.mkdtemp(prefix="bsa_kmer_")
+        atexit.register(shutil.rmtree, tmp, True)
+        qs, ts = contig_pairs(*WIDE_EDIT_KMER, SEED + 168)
+        path = os.path.join(tmp, "kmer.fa")
+        with open(path, "w") as f:
+            for b, (q, t) in enumerate(zip(qs, ts)):
+                f.write(f">q{b}\n{''.join('ACGT'[x] for x in q)}\n"
+                        f">t{b}\n{''.join('ACGT'[x] for x in t)}\n")
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=HERE + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bsalign_tpu_torch", "edit", "--device",
+             "cpu", "-m", "kmer", "-k", "13", path], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            preexec_fn=lambda: os.nice(19))
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        return proc, time.time()
+
     cat_cpu = edit_cpu = None
     if not sys.argv[1:]:
         cat_cpu = start_cat_cpu()
     if not sys.argv[1:] or "--wide" in sys.argv[1:]:
-        edit_cpu = start_edit_cpu()
+        edit_cpu = start_edit_cpu(), start_kmer_cpu()
 
     mtx = O.set_score_matrix(2, -6)
     smax, smin = int(mtx.max()), int(mtx.min())
@@ -1190,12 +1232,12 @@ def main() -> int:
 
     def edit_block_rows(label):
         """Kernel B's block row (NW past EDIT_REG_NW, the default there)
-        and its segmented row (forced) against the plain version at NW
-        640, 752, 1,024 (K 4) and 3,200 (K 8) in every mode (4 queries of
-        20-102 kb against 500 bp, full band), tolerance 0. Returns (the block row's max error,
-        the plain version's ms at NW 1,024, the segmented row's max
-        error)."""
-        worst, plain_ms, worst_s = 0, 0.0, 0
+        and its cluster row (forced) against the plain version at NW 640,
+        752, 1,024 (K 4) and 3,200 (K 8) in every mode (4 queries of
+        20-102 kb against 500 bp, full band), tolerance 0. Returns (the
+        block row's max error, the plain version's ms at NW 1,024, the
+        cluster row's max error)."""
+        worst, plain_ms, worst_c = 0, 0.0, 0
         for nw, L in ((640, 20000), (752, 23500), (1024, 32000),
                       (3200, 102000)):
             for mode in (MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND):
@@ -1204,26 +1246,104 @@ def main() -> int:
                       for k in range(4)]
                 ts = [q[5000:5500 + 11 * k].copy() for k, q in enumerate(qs)]
                 g, ops = edit_operands(qs, ts, mode, 32 * nw, False)
-                before = (_cuda.edit_block_launches, _cuda.edit_seg_launches)
+                before = (_cuda.edit_block_launches,
+                          _cuda.edit_cluster_launches)
                 err, bad, p_ms, rp = edit_compare(g, ops)
-                err_s, bad_s, _, _ = edit_compare(g, ops, "segmented", rp)
+                err_c, bad_c, _, _ = edit_compare(g, ops, "cluster", rp)
                 del rp
-                if (_cuda.edit_block_launches, _cuda.edit_seg_launches) != (
-                        before[0] + 1, before[1] + 1):
-                    bad.append("the block and segmented rows did not launch "
+                if (_cuda.edit_block_launches, _cuda.edit_cluster_launches) \
+                        != (before[0] + 1, before[1] + 1):
+                    bad.append("the block and cluster rows did not launch "
                                "once each")
-                bad += [f"segmented row: {b}" for b in bad_s]
-                worst, worst_s = max(worst, err), max(worst_s, err_s)
+                bad += [f"cluster row: {b}" for b in bad_c]
+                worst, worst_c = max(worst, err), max(worst_c, err_c)
                 if nw == 1024:
                     plain_ms = p_ms
-                print(f"{label} kernel B block and segmented rows NW {nw} "
+                print(f"{label} kernel B block and cluster rows NW {nw} "
                       f"{['global', 'overlap', 'extend'][mode]}: 4 x {L} bp "
                       f"against 500 bp, T={g.T}: max_abs_err={err} / "
-                      f"{err_s}; plain on the card {p_ms:.1f} ms")
+                      f"{err_c}; plain on the card {p_ms:.1f} ms")
                 if bad:
                     raise RuntimeError(f"{label} B NW {nw} mode {mode}: "
                                        + "; ".join(bad[:8]))
-        return worst, plain_ms, worst_s
+        return worst, plain_ms, worst_c
+
+    def edit_cluster_rows(label):
+        """Kernel B's cluster row (past EDIT_BLOCK_MAX_NW, the default
+        there) against the plain version, tolerance 0: at NW 4,097, 4,192
+        and 8,192 in every mode, banded (rows that shift) on 2 queries a
+        little longer than the band, and (not in overlap, which never
+        shifts) on a trajectory whose shifts cross blocks and reset the
+        band; at NW 32,768 (8 blocks) and 65,537 (past the registers: the
+        sweep) on 48 rows. Returns the max error."""
+        def crossing(rbegs, tlens, qlens, T):
+            r = np.zeros_like(rbegs)
+            for b, tl in enumerate(tlens):
+                cur = 0
+                for i in range(int(tl)):
+                    cur += 400000 if i % 29 == 13 else (i % 7 == 3) * (
+                        80097 + 32 * b)
+                    r[i, b] = min(cur, int(qlens[b]) - 8)
+            m = np.diff(r, axis=0, prepend=0).astype(np.int32)
+            for b, tl in enumerate(tlens):
+                m[int(tl):, b] = 0
+            return r, m
+        occ = {C: _cuda.edit_cluster_occupancy(8, _cuda.EDIT_BLOCK_MAXW, C)
+               for C in (2, 4, 8, 16)}
+        print(f"{label} kernel B cluster row: clusters of 16 warps of 8 "
+              f"words the card holds at once, by blocks a cluster: {occ}; "
+              f"the largest cluster taken: {_cuda.edit_cluster_max(dev)}")
+        rng = np.random.default_rng(SEED + 169)
+        worst = 0
+        cases = [(nw, mode, kind) for nw in (4097, 4192, 8192)
+                 for mode in (MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND)
+                 for kind in ("banded", "crossing")
+                 if not (kind == "crossing" and mode == MODE_OVERLAP)]
+        cases += [(32768, MODE_EXTEND, "full"), (65537, MODE_GLOBAL,
+                                                 "banded")]
+        for nw, mode, kind in cases:
+            bw = 32 * nw
+            if kind == "crossing":
+                qs = [rng.integers(0, 4, 3 * bw + 1500000).astype(np.uint8)
+                      for _ in range(2)]
+                ts = [rng.integers(0, 4, 90 - 11 * k).astype(np.uint8)
+                      for k in range(2)]
+                g, ops = edit_operands(qs, ts, mode, bw, True, crossing)
+            elif kind == "banded":
+                n = 1 if nw > 8192 else 2
+                qs = [rng.integers(0, 4, bw + 5000 + 17 * k).astype(np.uint8)
+                      for k in range(n)]
+                ts = [rng.integers(0, 4, (48 if nw > 8192 else 120) - 11 * k)
+                      .astype(np.uint8) for k in range(n)]
+                g, ops = edit_operands(qs, ts, mode, bw, True)
+            else:
+                qs = [rng.integers(0, 4, bw - 100).astype(np.uint8)]
+                ts = [qs[0][5000:5048].copy()]
+                g, ops = edit_operands(qs, ts, mode, bw, False)
+            before = (_cuda.edit_cluster_launches, _cuda.edit_sweep_launches)
+            err, bad, p_ms, _ = edit_compare(g, ops)
+            geo = _cuda.edit_cluster_default(nw, len(qs), dev)
+            sweep = geo[3] > 1
+            if (_cuda.edit_cluster_launches - before[0],
+                    _cuda.edit_sweep_launches - before[1]) != (1, sweep):
+                bad.append("the cluster row did not launch once")
+            live = np.arange(g.T)[:, None] < ops.tlen.cpu().numpy()[None]
+            mv = ops.movxs.cpu().numpy()[live]
+            if kind == "crossing" and not (mv.max() >= bw and (
+                    (mv >= 32) & (mv < bw)).any()):
+                bad.append("no full reset or no shift of whole words")
+            worst = max(worst, err)
+            print(f"{label} kernel B cluster row NW {nw} "
+                  f"{['global', 'overlap', 'extend'][mode]} {kind}: "
+                  f"{len(qs)} pairs, T={g.T}, geometry {geo}"
+                  f"{' (the sweep)' if sweep else ''}, max movx "
+                  f"{int(mv.max())}: max_abs_err={err}; plain on the card "
+                  f"{p_ms:.1f} ms")
+            if bad:
+                raise RuntimeError(f"{label} B cluster NW {nw} mode {mode} "
+                                   f"{kind}: " + "; ".join(bad[:8]))
+            del ops
+        return worst
 
     def pedit_block_rows(label):
         """Kernel C's block row (bw past PEDIT_REG_BW) against its plain
@@ -1285,9 +1405,14 @@ def main() -> int:
     def crossovers():
         """us a row of kernel B's register and block rows (NW 128, 256,
         384, 512; NW 128 is one warp of the block row) and of its block and
-        segmented rows (NW 752) at 8 and 256 pairs of 2,048 rows, and of
-        the block row in each geometry and the segmented row at NW 1,536,
-        2,049, 3,200 and 4,096 (outputs equal) at 8 and 64 pairs; ms a
+        cluster rows (NW 752) at 8 and 256 pairs of 2,048 rows; the cluster
+        exchange alone (its floor, us a row at C 2, 4, 8 and 16 blocks of 1,
+        9 and 16 warps) with the clusters the card holds at once; the block
+        row in each geometry against the cluster row in its default and
+        other geometries at NW 1,536, 2,049, 3,200 and 4,096 (outputs
+        equal) at 8 and 256 pairs of 1,024 rows; the cluster row in each
+        geometry at NW 4,192, 8,192, 16,384 and 32,768 at 2 and 64 pairs of
+        256 rows and the sweep against the registers at NW 32,768; ms a
         launch of kernel C's register and block rows at bw 128, 512 and
         1,022 (6 and 64 random jobs), and of the block row in every
         geometry at bw 1,024 to 32,510."""
@@ -1299,7 +1424,7 @@ def main() -> int:
                                 (256, ("register", "block")),
                                 (384, ("register", "block")),
                                 (512, ("register", "block")),
-                                (752, ("block", "segmented"))):
+                                (752, ("block", "cluster"))):
                 g, ops = edit_operands(qs, ts, MODE_GLOBAL, 32 * nw, False)
                 us = {d: timed_ms(lambda: _cuda.edit_rows(g, ops, design=d),
                                   3) * 1e3 / g.T for d in designs}
@@ -1308,35 +1433,86 @@ def main() -> int:
                 del ops
             print(f"kernels kernel B crossover, us a row, {n} pairs x 2 kb "
                   f"(T=2048): " + "; ".join(line))
-        for n in (8, 64):
+        for C in (2, 4, 8, 16):
+            occ = _cuda.edit_cluster_occupancy(8, _cuda.EDIT_BLOCK_MAXW, C)
+            line = [f"{occ} clusters of 16 warps of 8 words at once"]
+            if occ > 0:
+                for w in (1, 9, 16):
+                    ms = timed_ms(lambda: _cuda.edit_cluster_floor(
+                        C, w, 1, 8192, dev), 3)
+                    line.append(f"{w} warps {ms * 1e3 / 8192:.4f} us a row")
+            print(f"kernels kernel B cluster exchange alone (stage 0), C "
+                  f"{C}: " + "; ".join(line))
+
+        def geos(nw, n):   # the cluster row's default, other geometries
+            out = [_cuda.edit_cluster_default(nw, n, dev)]
+            for K, C in ((4, 2), (4, 3), (4, 4), (4, 8), (8, 2), (8, 4),
+                         (8, 8), (8, 16)):
+                geo = (K, -(-nw // (C * 32 * K)), C, 1)
+                if geo not in out and _cuda.edit_cluster_geometry_ok(nw, *geo)\
+                        and _cuda.edit_cluster_occupancy(*geo[:3]) > 0:
+                    out.append(geo)
+            return out
+        for n in (8, 256):
             line = []
             for nw in (1536, 2049, 3200, 4096):
                 rb_ = np.random.default_rng(SEED + 172 + nw)
                 qs = [rb_.integers(0, 4, 32 * nw - 64).astype(np.uint8)
                       for _ in range(n)]
-                ts = [q[1000:3000].copy() for q in qs]
+                ts = [q[1000:2000].copy() for q in qs]
                 g, ops = edit_operands(qs, ts, MODE_GLOBAL, 32 * nw, False)
-                ref = _cuda.edit_rows(g, ops, design="segmented")
-                us = {"segmented": timed_ms(lambda: _cuda.edit_rows(
-                    g, ops, design="segmented"), 3) * 1e3 / g.T}
+                ref = _cuda.edit_rows(g, ops)
+                us = {}
                 for K in (4, 8):
                     geo = (K, -(-nw // (32 * K)))
-                    if not _cuda.edit_geometry_ok(nw, *geo):
-                        continue
+                    if _cuda.edit_geometry_ok(nw, *geo):
+                        us[f"block K {K} x {geo[1]}"] = (
+                            "block", geo)
+                for geo in geos(nw, n)[:4]:
+                    us[f"cluster {geo[:3]}"] = ("cluster", geo)
+                for k, (d, geo) in list(us.items()):
                     if not edit_same(ops, ref, _cuda.edit_rows(
-                            g, ops, design="block", geometry=geo)):
-                        raise RuntimeError(f"kernels: B's block row {geo} "
-                                           f"and segmented row differ at NW "
-                                           f"{nw}")
-                    us[f"block K {K} x {geo[1]}"] = timed_ms(
-                        lambda: _cuda.edit_rows(g, ops, design="block",
-                                                geometry=geo), 3) * 1e3 / g.T
+                            g, ops, design=d, geometry=geo)):
+                        raise RuntimeError(f"kernels: B's {k} row differs "
+                                           f"from the default at NW {nw}")
+                    us[k] = timed_ms(lambda: _cuda.edit_rows(
+                        g, ops, design=d, geometry=geo), 3) * 1e3 / g.T
                 del ref, ops
                 line.append(f"NW {nw} " + " / ".join(
                     f"{d} {v:.3f}" for d, v in us.items()))
-            print(f"kernels kernel B past NW 1,024, us a row, {n} pairs of "
-                  f"queries filling the band x 2 kb (T=2048, outputs "
-                  f"equal): " + "; ".join(line))
+            print(f"kernels kernel B block and cluster rows, us a row, {n} "
+                  f"pairs of queries filling the band x 1 kb (T=1024, "
+                  f"outputs equal): " + "; ".join(line))
+        for n in (2, 64):
+            line = []
+            for nw in (4192, 8192, 16384, 32768):
+                if n * nw > 64 * 8192:
+                    continue
+                rb_ = np.random.default_rng(SEED + 173 + nw)
+                qs = [rb_.integers(0, 4, 32 * nw - 64).astype(np.uint8)
+                      for _ in range(n)]
+                ts = [q[1000:1256].copy() for q in qs]
+                g, ops = edit_operands(qs, ts, MODE_EXTEND, 32 * nw, False)
+                ref = _cuda.edit_rows(g, ops)
+                cand = geos(nw, n)
+                if nw == 32768:   # the sweep against the registers
+                    cand.append((8, 8, 8, 2))
+                us = {}
+                for geo in cand:
+                    if not edit_same(ops, ref, _cuda.edit_rows(
+                            g, ops, design="cluster", geometry=geo)):
+                        raise RuntimeError(f"kernels: B's cluster row "
+                                           f"{geo} differs from the default "
+                                           f"at NW {nw}")
+                    us[geo] = timed_ms(lambda: _cuda.edit_rows(
+                        g, ops, design="cluster", geometry=geo), 3) \
+                        * 1e3 / g.T
+                del ref, ops
+                line.append(f"NW {nw} " + " / ".join(
+                    f"{geo} {v:.3f}" for geo, v in us.items()))
+            print(f"kernels kernel B cluster row, us a row, {n} pairs x 256 "
+                  f"rows, extend, each geometry (the first the default; "
+                  f"outputs equal): " + "; ".join(line))
         for n in (6, 64):
             line = []
             for bw in (128, 512, _cuda.PEDIT_REG_BW):
@@ -1361,8 +1537,9 @@ def main() -> int:
         device memory against shared memory (a) and against the plain
         version at band 32,768 (b); align at the CLI defaults on 32 kb
         reads (c) and with map-ont costs on 24 kb (d); kernel B past NW
-        512 and edit -W 0 on 24 kb (e); kernel C past bw 1,022 and poa -G
-        editbw=4096 (f); cat's 4x retry at band 32,768 (g)."""
+        512, edit -W 0 on 24 kb and edit -m kmer's tails on the cluster
+        row (e); kernel C past bw 1,022 and poa -G editbw=4096 (f); cat's
+        4x retry at band 32,768 (g)."""
         import contextlib
         import dataclasses
         import io
@@ -1546,7 +1723,8 @@ def main() -> int:
         stamp16("d")
 
         # (e) kernel B past 512 words, then edit -W 0 on 24 kb
-        blk_err, blk_plain_ms, seg_err = edit_block_rows("phase16 (e)")
+        blk_err, blk_plain_ms, cl_err = edit_block_rows("phase16 (e)")
+        cl_err = max(cl_err, edit_cluster_rows("phase16 (e)"))
         n, tl, ql = WIDE_EDIT
         qs, ts = wide_pairs(n, tl, ql, SEED + 165)
         torch.cuda.synchronize()
@@ -1575,7 +1753,7 @@ def main() -> int:
                     and 0 < rs.score < tl // 2):
                 raise RuntimeError(f"phase 16 (e) pair {b}: implausible "
                                    f"alignment {rs}")
-        proc, t_cpu0 = edit_cpu
+        (proc, t_cpu0), kmer_cpu = edit_cpu
         t_wait = time.time()
         try:
             cpu_out, err = proc.communicate(timeout=600)
@@ -1595,14 +1773,14 @@ def main() -> int:
         qs_e, ts_e, per_e, cnt_e = qs, ts, per, launches
 
         # past EDIT_BLOCK_MAX_NW: edit -m kmer of reads against the contigs
-        # they start, the tail after the last anchor on the segmented row
-        n, tl, junk, ql = WIDE_EDIT_SEG
-        qs, ts = contig_pairs(n, tl, junk, ql, SEED + 168)
-        seg_calls, real_bucket = [], D._edit_bucket
+        # they start, the tails after the last anchor on the cluster row
+        # (NW 4,192) and its sweep (past 65,536 words)
+        qs, ts = contig_pairs(*WIDE_EDIT_KMER, SEED + 168)
+        tails, real_bucket = [], D._edit_bucket
 
         def spy(qseqs, tseqs, mode, bw, banded, device):
             if bw // 32 > _cuda.EDIT_BLOCK_MAX_NW:
-                seg_calls.append((qseqs, tseqs, mode, bw, banded))
+                tails.append((qseqs, tseqs, mode, bw, banded))
             return real_bucket(qseqs, tseqs, mode, bw, banded, device)
         D._edit_bucket = spy
         try:
@@ -1611,45 +1789,71 @@ def main() -> int:
             res = D.kmer_edit_batch(13, qs, ts, device=dev)
             torch.cuda.synchronize()
             wall = time.time() - t0
-            cnt_s, cnt_all = _cuda.edit_seg_launches, _cuda.edit_launches
+            cnt_c, cnt_w = _cuda.edit_cluster_launches, \
+                _cuda.edit_sweep_launches
+            cnt_all = _cuda.edit_launches
         finally:
             D._edit_bucket = real_bucket
-        if cnt_s < 1 or len(seg_calls) != 1:
-            raise RuntimeError(f"phase 16 (e) kmer: {cnt_s} launches of the "
-                               f"segmented row, {len(seg_calls)} buckets past "
-                               f"NW {_cuda.EDIT_BLOCK_MAX_NW}")
-        t0 = time.time()
-        res_cpu = D.kmer_edit_batch(13, qs, ts, device="cpu")
-        wall_cpu = time.time() - t0
+        if cnt_c - cnt_w < 1 or cnt_w < 1 or len(tails) != 2:
+            raise RuntimeError(f"phase 16 (e) kmer: {cnt_c} launches of the "
+                               f"cluster row, {cnt_w} of its sweep, "
+                               f"{len(tails)} buckets past NW "
+                               f"{_cuda.EDIT_BLOCK_MAX_NW}")
         for b, (rs, cg) in enumerate(res):
-            if CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b], rs, cg) \
-                    != CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b],
-                                         *res_cpu[b]):
-                raise RuntimeError(f"phase 16 (e) kmer pair {b}: the card "
-                                   "differs from the CPU")
-            if not (cg and rs.qb == 0 and rs.mat > 0.6 * tl):
+            if not (cg and rs.qb == 0 and rs.mat > 0.6 * WIDE_EDIT_KMER[0]):
                 raise RuntimeError(f"phase 16 (e) kmer pair {b}: "
                                    f"implausible alignment {rs}")
-        sq, st_, smode, sbw, sbanded = seg_calls[0]
-        g, ops = edit_operands(sq, st_, smode, sbw, sbanded)
-        err, bad, p_ms, _ = edit_compare(g, ops)
-        if bad:
-            raise RuntimeError(f"phase 16 (e) kmer tail at NW {g.NW}, the "
-                               "segmented row: " + "; ".join(bad[:8]))
-        s_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 3)
-        b_ms, b_by, b_text = bound(edit_bytes(g, ops), int(ops.tlen.sum())
-                                   * g.NW * EDIT_OPS_PER_WORD_ROW)
-        print(f"phase16 (e) edit -m kmer: {n} reads of {tl + junk} bp whose "
-              f"first {tl} start contigs of {ql} bp: {wall:.3f}s, "
-              f"{cnt_all} edit launches, {cnt_s} of the segmented row (the "
-              f"tails after the last anchor: {len(sq)} pairs at NW {g.NW}, "
-              f"T={g.T}); every TSV == the CPU's ({wall_cpu:.1f}s); that "
-              f"launch against plain max_abs_err={err}, kernel {s_ms:.3f} "
-              f"ms = {s_ms / g.T * 1e3:.3f} us a row, plain on the card "
-              f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by} ({b_text})")
-        seg_row = dict(ms=s_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                       launches=cnt_s, err=max(err, seg_err))
-        del ops
+        card = "".join(CLI._fmt_pairwise(f"q{b}", f"t{b}", qs[b], ts[b], rs,
+                                         cg) if rs.mat else ""
+                       for b, (rs, cg) in enumerate(res))
+        proc, t_cpu0 = kmer_cpu
+        t_wait = time.time()
+        try:
+            cpu_out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise RuntimeError("phase 16 (e): the CPU edit -m kmer outlived "
+                               "900 s")
+        if proc.returncode != 0 or card != cpu_out:
+            raise RuntimeError(f"phase 16 (e) kmer: edit --device cpu "
+                               f"returned {proc.returncode}, TSVs "
+                               f"{'equal' if card == cpu_out else 'differ'}: "
+                               f"{err[-500:]}")
+        print(f"phase16 (e) edit -m kmer: {len(qs)} reads of "
+              f"{sum(WIDE_EDIT_KMER[:2])} bp whose first "
+              f"{WIDE_EDIT_KMER[0]} start contigs of "
+              f"{', '.join(str(c) for c in WIDE_EDIT_KMER[2])} bp: "
+              f"{wall:.3f}s, {cnt_all} edit launches, {cnt_c} of the "
+              f"cluster row ({cnt_w} of them the sweep); every TSV == edit "
+              f"--device cpu -m kmer's (the CPU process ran "
+              f"{time.time() - t_cpu0:.1f}s beside the card, "
+              f"{time.time() - t_wait:.1f}s of it waited for here)")
+        kmer_rows = {}
+        for sq, st_, smode, sbw, sbanded in tails:
+            g, ops = edit_operands(sq, st_, smode, sbw, sbanded)
+            err, bad, p_ms, _ = edit_compare(g, ops)
+            geo = _cuda.edit_cluster_default(g.NW, len(sq), dev)
+            key = "edit_sweep" if geo[3] > 1 else "edit_cluster"
+            if bad:
+                raise RuntimeError(f"phase 16 (e) kmer tail at NW {g.NW}, "
+                                   "the cluster row: " + "; ".join(bad[:8]))
+            c_ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 3)
+            b_ms, b_by, b_text = bound(edit_bytes(g, ops), int(
+                ops.tlen.sum()) * g.NW * EDIT_OPS_PER_WORD_ROW)
+            print(f"phase16 (e) kmer tails: {len(sq)} pairs at NW {g.NW}, "
+                  f"T={g.T}, {['global', 'overlap', 'extend'][smode]}, the "
+                  f"cluster row {geo}{' (the sweep)' if geo[3] > 1 else ''}: "
+                  f"against plain max_abs_err={err}, kernel {c_ms:.3f} ms = "
+                  f"{c_ms / g.T * 1e3:.3f} us a row, plain on the card "
+                  f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by} ({b_text})")
+            kmer_rows[key] = dict(
+                ms=c_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                launches=cnt_w if key == "edit_sweep" else cnt_c - cnt_w,
+                err=max(err, cl_err))
+            del ops
+        if sorted(kmer_rows) != ["edit_cluster", "edit_sweep"]:
+            raise RuntimeError(f"phase 16 (e) kmer: tails of "
+                               f"{sorted(kmer_rows)}")
         stamp16("e")
 
         # (f) kernel C past bw 1,022, then poa -G editbw=4096
@@ -1775,10 +1979,9 @@ def main() -> int:
         g, ops = edit_operands(qs_e[:per_e], ts_e[:per_e], MODE_GLOBAL,
                                32 * 752, False)
         ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 1)
-        s_ms = timed_ms(lambda: _cuda.edit_rows(g, ops, design="segmented"),
-                        1)
+        c_ms = timed_ms(lambda: _cuda.edit_rows(g, ops, design="cluster"), 1)
         same = edit_same(ops, *(_cuda.edit_rows(g, ops, design=d)
-                                for d in ("block", "segmented")))
+                                for d in ("block", "cluster")))
         nrows = int(ops.tlen.sum())
         b_ms, b_by, b_text = bound(edit_bytes(g, ops),
                                    nrows * g.NW * EDIT_OPS_PER_WORD_ROW)
@@ -1786,17 +1989,19 @@ def main() -> int:
         print(f"phase16 (h) kernel B block row (K {bk}, {bnw} warps), (e)'s "
               f"launch: {per_e} pairs x {g.T} rows at NW {g.NW}: {ms:.3f} ms "
               f"= {ms / g.T * 1e3:.3f} us a row, "
-              f"{nrows * g.bw / (ms / 1e3):.4g} cells/s; the segmented row "
-              f"{s_ms:.3f} ms = {s_ms / g.T * 1e3:.3f} us a row "
-              f"({s_ms / ms:.1f}x); outputs equal: {same}; launches {cnt_e} "
-              f"in (e); bound {b_ms:.4f} ms by {b_by} ({b_text})")
+              f"{nrows * g.bw / (ms / 1e3):.4g} cells/s; the cluster row "
+              f"{_cuda.edit_cluster_default(g.NW, per_e, dev)} {c_ms:.3f} "
+              f"ms = {c_ms / g.T * 1e3:.3f} us a row ({c_ms / ms:.2f}x); "
+              f"outputs "
+              f"equal: {same}; launches {cnt_e} in (e); bound {b_ms:.4f} ms "
+              f"by {b_by} ({b_text})")
         del ops
         if not same:
-            raise RuntimeError("phase 16 (h): the block and segmented rows "
+            raise RuntimeError("phase 16 (h): the block and cluster rows "
                                "differ at (e)'s launch")
         rows["edit_block"] = dict(ms=ms, plain_ms=blk_plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, launches=cnt_e, err=blk_err)
-        rows["edit_seg"] = seg_row
+        rows.update(kmer_rows)
         rows["pedit_block"] = dict(pw_row, launches=cnt_f)
         rows["worst"] = worst
         stamp16("h")
@@ -1964,6 +2169,7 @@ def main() -> int:
             _, err, e_ms, e_plain, e_bound, e_by = edit_main_kernel(qs, ts)
             _, p_err, p_ms, p_plain, p_bound, p_by, _ = phase7()
             edit_block_rows("kernels")
+            edit_cluster_rows("kernels")
             pedit_block_rows("kernels")
             crossovers()
             n, tl, ql = WIDE_EDIT
@@ -1972,15 +2178,17 @@ def main() -> int:
             g, ops = edit_operands(qs[:per], ts[:per], MODE_GLOBAL, 32 * 752,
                                    False)
             ms = timed_ms(lambda: _cuda.edit_rows(g, ops), 1)
-            s_ms = timed_ms(lambda: _cuda.edit_rows(g, ops,
-                                                    design="segmented"), 1)
+            c_ms = timed_ms(lambda: _cuda.edit_rows(g, ops,
+                                                    design="cluster"), 1)
             k8_ms = timed_ms(lambda: _cuda.edit_rows(
                 g, ops, design="block", geometry=(8, 3)), 1)
             print(f"kernels kernel B at (e)'s launch ({per} pairs x {g.T} "
                   f"rows, NW 752): block row {ms:.3f} ms = "
                   f"{ms / g.T * 1e3:.3f} us a row (3 warps of 8 words: "
-                  f"{k8_ms / g.T * 1e3:.3f}); segmented row "
-                  f"{s_ms:.3f} ms = {s_ms / g.T * 1e3:.3f} us a row")
+                  f"{k8_ms / g.T * 1e3:.3f}); cluster row "
+                  f"{_cuda.edit_cluster_default(752, per, dev)} {c_ms:.3f} "
+                  f"ms = "
+                  f"{c_ms / g.T * 1e3:.3f} us a row")
             del ops
         except RuntimeError as e:
             return fail(str(e))
@@ -2878,15 +3086,16 @@ def main() -> int:
         "max_abs_err": r16["edit_block"]["err"], "ms": r16["edit_block"]["ms"],
         "plain_ms": r16["edit_block"]["plain_ms"],
         "bound_ms": r16["edit_block"]["bound_ms"],
-        "bound_by": r16["edit_block"]["bound_by"], "library_ms": None}, {
-        "name": "edit_seg_rows", "route": "cuda",
+        "bound_by": r16["edit_block"]["bound_by"], "library_ms": None}] + [{
+        "name": f"{key}_rows", "route": "cuda",
         "source": "bsalign_tpu_torch/csrc/edit.cu",
         "replaces": "bsalign_tpu/ops/edit_pallas.py:88",
-        "launches": r16["edit_seg"]["launches"],
-        "max_abs_err": r16["edit_seg"]["err"], "ms": r16["edit_seg"]["ms"],
-        "plain_ms": r16["edit_seg"]["plain_ms"],
-        "bound_ms": r16["edit_seg"]["bound_ms"],
-        "bound_by": r16["edit_seg"]["bound_by"], "library_ms": None}, {
+        "launches": r16[key]["launches"],
+        "max_abs_err": r16[key]["err"], "ms": r16[key]["ms"],
+        "plain_ms": r16[key]["plain_ms"],
+        "bound_ms": r16[key]["bound_ms"],
+        "bound_by": r16[key]["bound_by"], "library_ms": None}
+        for key in ("edit_cluster", "edit_sweep")] + [{
         "name": "pedit_block_rows", "route": "cuda",
         "source": "bsalign_tpu_torch/csrc/pedit.cu",
         "replaces": "bsalign_tpu/ops/pedit_pallas.py:46",

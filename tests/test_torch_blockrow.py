@@ -1,5 +1,6 @@
-"""CPU models of the block rows of kernels B and C (csrc/edit.cu
-edit_blk_rows_kernel, csrc/pedit.cu pedit_blk_rows_kernel) in numpy, held
+"""CPU models of the block and cluster rows of kernel B (csrc/edit.cu
+edit_blk_rows_kernel, edit_cl_rows_kernel, edit_cl_sweep_kernel) and the
+block row of kernel C (csrc/pedit.cu pedit_blk_rows_kernel) in numpy, held
 bit for bit against the plain versions (ops/edit.py and ops/pedit.py
 forward_plain), which tests/test_torch_edit.py and tests/test_torch_pedit.py
 hold to the JAX package.
@@ -8,14 +9,19 @@ Each model follows its kernel's order of work, with the warp's width (WL
 lanes) and the words or cells a thread holds (K) as parameters, so that
 small bands cross several "warps":
 
-- B: a block of warps a pair, thread t owning words [t*K, (t+1)*K). Per row
-  each lane forms generate / propagate over its words, each warp its
-  lookahead over lanes for a carry in of 0 and of 1, and publishes one word
-  (its carry out for both, the top HP/HN bits of its last lane for both, the
-  warp's row-score partial of the row before); the block's lookahead over
-  those words gives each warp its carry in, lane 0 takes the warp below's
-  top bits by the carry that warp received. Band shifts go through a copy
-  of the row; the row score is reduced a row later.
+- B: a cluster of C blocks of warps a pair (the block row: C 1), thread t
+  of the cluster owning words [t*K, (t+1)*K), or with pieces > 1 (the
+  sweep) that many pieces of K words, its generate / propagate combined
+  piece by piece. Per row each lane forms generate / propagate over its
+  words and the top HP/HN bits of its last word for a carry in of 0 and 1,
+  each warp its lookahead over lanes for both and publishes one word (its
+  carry out for both, its last lane's top bits for both, the warp's
+  row-score partial of the row before); each block's lookahead over those
+  words for a carry into the block of 0 and 1 gives the block's word, and
+  the cluster's lookahead over the blocks' words each block's carry in;
+  lane 0 takes the warp below's top bits by the carry that warp received,
+  warp 0 the block below's. Band shifts go through a copy of the row
+  across the cluster; the row score is reduced a row later.
 - C: a block of warps a job, thread t of NT holding band cells t + NT*k,
   two to a word. Neighbours come from the thread beside (within a warp by
   shuffle, across warps from the published boundary words), thread 0 and
@@ -25,8 +31,8 @@ small bands cross several "warps":
   bytewise in the chunks a job shares with its neighbours; the zero rows
   go straight out. The model writes into buffers of 0xA5, so a byte it
   leaves unwritten shows.
-- The launchers' geometry functions over NW 513-4,097 and bw 1,023-32,510
-  against their stated limits.
+- The launchers' geometry functions over NW 64-1,048,576 and bw
+  1,023-32,510 against their stated limits.
 """
 import numpy as np
 import pytest
@@ -57,16 +63,21 @@ def _popc(x):
     return bin(x).count("1")
 
 
-def edit_block_model(g, ops, WL, K):
-    """The block row's raw outputs (the keys of forward_plain) for the
-    operands ops (numpy on the CPU), warps of WL lanes, K words a thread."""
+def edit_cluster_model(g, ops, WL, K, nwarp, C, pieces=1):
+    """The cluster row's raw outputs (the keys of forward_plain) for the
+    operands ops (numpy on the CPU): C blocks of nwarp warps of WL lanes,
+    each thread owning `pieces` pieces of K consecutive words (pieces > 1:
+    the sweep, each thread's generate / propagate combined piece by piece).
+    C 1 is the block row."""
     NW, T, bw = g.NW, g.T, 32 * g.NW
     overlap = g.mode == MODE_OVERLAP
     track = g.mode != MODE_GLOBAL
     qeq = ops.qeq.numpy().view(np.uint32)
     B, NWQ = qeq.shape[1], qeq.shape[2]
-    nwarp = -(-NW // (WL * K))
-    NT = WL * nwarp
+    NT, KT = WL * nwarp, K * pieces          # threads a block, words a thread
+    S = NT * KT                              # words a block
+    NA = C * S
+    assert NA >= NW > (C - 1) * S
     out = dict(pm=np.zeros((B, T, NW), np.uint32),
                pp=np.zeros((B, T, NW), np.uint32),
                sbeg=np.zeros((B, T), np.int32),
@@ -75,27 +86,27 @@ def edit_block_model(g, ops, WL, K):
                scal=np.zeros((B, 4), np.int32))
     for b in range(B):
         qlen, tlen = int(ops.qlen[b]), min(int(ops.tlen[b]), T)
-        pm, pp = [0] * (NT * K), [M32] * (NT * K)
+        pm, pp = [0] * NA, [M32] * NA
         sbeg, smin, ry, rbeg_f = 0, SMIN0, 0, 0
-        part, sbeg_prev = [0] * nwarp, 0
+        part, sbeg_prev = [0] * (C * nwarp), 0    # each warp's partial
         for i in range(tlen):
             tb = int(ops.tseq[b, i])
             plane = qeq[tb if 1 <= tb <= 3 else 0, b]
             rbeg, movx = int(ops.rbegs[i, b]), int(ops.movxs[i, b])
-            if not overlap and movx > 0:   # band shift: a block reduction
+            if not overlap and movx > 0:   # band shift: a cluster reduction
                 mv = min(movx, bw)
                 sbeg += sum(_popc(pp[w] & _lowmask(w, mv))
                             - _popc(pm[w] & _lowmask(w, mv))
-                            for w in range(NT * K))
+                            for w in range(NA))
                 if movx >= bw:
-                    pm, pp = [0] * (NT * K), [M32] * (NT * K)
-                else:
+                    pm, pp = [0] * NA, [M32] * NA
+                else:   # each word from the blocks holding its sources
                     ws, bs = movx >> 5, movx & 31
                     cp_m, cp_p = list(pm), list(pp)
 
                     def rd(a, s):
                         return a[s] if s < NW else 0
-                    for w in range(NT * K):
+                    for w in range(NA):
                         s = w + ws
                         keep = _lowmask(w, bw - movx)
                         lm = (rd(cp_m, s) | rd(cp_m, s + 1) << 32) >> bs
@@ -104,10 +115,9 @@ def edit_block_model(g, ops, WL, K):
                         pp[w] = (lp & M32 & keep) | (M32 ^ keep)
             if not overlap:
                 sbeg += 1
-            # per thread: its words' X, s0, generate / propagate
             bsh = rbeg & 31
             X, s0, gen, prop = [], [], [], []
-            for w in range(NT * K):
+            for w in range(NA):
                 ws = (rbeg >> 5) + w
                 e0 = int(plane[ws]) if 0 <= ws < NWQ else 0
                 e1 = int(plane[ws + 1]) if 0 <= ws + 1 < NWQ else 0
@@ -118,29 +128,38 @@ def edit_block_model(g, ops, WL, K):
                 s0.append(s & M32)
                 gen.append(s > M32)
                 prop.append((s & M32) == M32)
-            G, P, Gl, Pl = [], [], [], []
-            for t in range(NT):
-                g_, p_ = False, True
-                for j in range(K):
-                    if j == K - 1:
-                        Gl.append(g_)
-                        Pl.append(p_)
-                    g_ = gen[t * K + j] or (prop[t * K + j] and g_)
-                    p_ = p_ and prop[t * K + j]
-                G.append(g_)
-                P.append(p_)
 
-            def top(t, c):   # top HP/HN bits of thread t's last word
-                w = t * K + K - 1
-                ck = Gl[t] or (Pl[t] and c)
-                A = (s0[w] + ck) & M32
+            def top(w, c):   # top HP/HN bits of word w for a carry c into it
+                A = (s0[w] + c) & M32
                 D0 = (A ^ pp[w]) | X[w]
                 hp = pm[w] | (M32 ^ (D0 | pp[w]))
                 hn = pp[w] & D0
                 return (hp >> 31) | (hn >> 31 << 1)
-            # each warp's word, then the block's lookahead over them
-            words, cl = [], []
-            for wp in range(nwarp):
+            # each thread: generate / propagate over its pieces, the top
+            # bits of its last word for a carry into the thread of 0 and 1
+            G, P, t01 = [], [], []
+            for th in range(C * NT):
+                g_, p_ = False, True
+                for k in range(pieces):
+                    gk, pk, gl, pl = False, True, False, True
+                    for j in range(K):
+                        w = th * KT + k * K + j
+                        if j == K - 1:
+                            gl, pl = gk, pk
+                        gk = gen[w] or (prop[w] and gk)
+                        pk = pk and prop[w]
+                    if k == pieces - 1:
+                        w = th * KT + KT - 1
+                        t01.append((top(w, gl or (pl and g_)),
+                                    top(w, gl or (pl and (g_ or p_)))))
+                    g_ = gk or (pk and g_)
+                    p_ = p_ and pk
+                G.append(g_)
+                P.append(p_)
+            # each warp's word: carry out and its last lane's top bits for
+            # a carry into the warp of 0 and of 1, its partial
+            cl, words = [], []
+            for wp in range(C * nwarp):
                 lanes = range(wp * WL, (wp + 1) * WL)
                 gm = sum(G[t] << (t - wp * WL) for t in lanes)
                 pmask = sum(P[t] << (t - wp * WL) for t in lanes) | gm
@@ -148,52 +167,73 @@ def edit_block_model(g, ops, WL, K):
                 c0s, c1s = (sum0 ^ pmask ^ gm), ((sum0 + 1) ^ pmask ^ gm)
                 cl.append([((c0s >> (t - wp * WL)) & 1,
                             (c1s >> (t - wp * WL)) & 1) for t in lanes])
-                co0 = sum0 >> WL
-                co1 = (sum0 + 1) >> WL
                 last = (wp + 1) * WL - 1
-                words.append((co0, co1, top(last, cl[wp][-1][0]),
-                              top(last, cl[wp][-1][1]), part[wp]))
+                words.append((sum0 >> WL, (sum0 + 1) >> WL,
+                              t01[last][cl[wp][-1][0]],
+                              t01[last][cl[wp][-1][1]], part[wp]))
+            # each block's word from its warps' (its lookahead for a carry
+            # into the block of 0 and of 1)
+            cBs, bwords = [], []
+            for r in range(C):
+                ww = words[r * nwarp:(r + 1) * nwarp]
+                gB = sum(w[0] << k for k, w in enumerate(ww))
+                pB = sum(w[1] << k for k, w in enumerate(ww)) | gB
+                sB = pB + gB
+                cB = ((sB ^ pB ^ gB), ((sB + 1) ^ pB ^ gB))
+                cBs.append(cB)
+                h = nwarp - 1
+                bwords.append(((sB >> nwarp) & 1, ((sB + 1) >> nwarp) & 1,
+                               ww[-1][2 + ((cB[0] >> h) & 1)],
+                               ww[-1][2 + ((cB[1] >> h) & 1)],
+                               sum(w[4] for w in ww)))
             if track and i > 0:
-                tot = sum(w[4] for w in words)
+                tot = sum(w[4] for w in bwords)
                 if sbeg_prev + tot < smin:
                     smin, ry = sbeg_prev + tot, i - 1
-            gB = sum(w[0] << k for k, w in enumerate(words))
-            pB = sum(w[1] << k for k, w in enumerate(words)) | gB
-            cB = (pB + gB) ^ pB ^ gB
-            HP, HN, D0 = [0] * (NT * K), [0] * (NT * K), [0] * (NT * K)
-            for t in range(NT):
-                wp, ln = divmod(t, WL)
-                c = cl[wp][ln][(cB >> wp) & 1]
-                for j in range(K):
-                    w = t * K + j
+            gC = sum(w[0] << k for k, w in enumerate(bwords))
+            pC = sum(w[1] << k for k, w in enumerate(bwords)) | gC
+            cC = (pC + gC) ^ pC ^ gC
+            HP, HN, D0 = [0] * NA, [0] * NA, [0] * NA
+            cth, lo = [], []
+            for th in range(C * NT):
+                r, t = divmod(th, NT)
+                wp, ln = divmod(th, WL)
+                cB = cBs[r][(cC >> r) & 1]
+                c = cl[wp][ln][(cB >> (t // WL)) & 1]
+                cth.append(c)
+                for j in range(KT):
+                    w = th * KT + j
                     A = (s0[w] + c) & M32
                     c = gen[w] or (prop[w] and c)
                     D0[w] = (A ^ pp[w]) | X[w]
                     HP[w] = pm[w] | (M32 ^ (D0[w] | pp[w]))
                     HN[w] = pp[w] & D0[w]
-            for t in range(NT):
-                wp, ln = divmod(t, WL)
-                if ln:      # the lane below, by shuffle
-                    w = t * K - 1
-                    lo = (HP[w] >> 31) | (HN[w] >> 31 << 1)
-                elif wp:    # the warp below's word, by its carry in
-                    lo = words[wp - 1][2 + ((cB >> (wp - 1)) & 1)]
+            for th in range(C * NT):
+                r, t = divmod(th, NT)
+                wp, ln = divmod(th, WL)
+                if ln:      # the lane below's top bits by its carry in
+                    lo_ = t01[th - 1][cth[th - 1]]
+                elif t:     # the warp below's word, by its carry in
+                    cB = cBs[r][(cC >> r) & 1]
+                    lo_ = words[wp - 1][2 + ((cB >> (t // WL - 1)) & 1)]
+                elif r:     # the block below's word, by its carry in
+                    lo_ = bwords[r - 1][2 + ((cC >> (r - 1)) & 1)]
                 else:
-                    lo = 0 if overlap else 1
-                for j in range(K):
-                    w = t * K + j
+                    lo_ = 0 if overlap else 1
+                for j in range(KT):
+                    w = th * KT + j
                     hps = ((HP[w] << 1) & M32) | (HP[w - 1] >> 31 if j
-                                                 else lo & 1)
+                                                 else lo_ & 1)
                     hns = ((HN[w] << 1) & M32) | (HN[w - 1] >> 31 if j
-                                                 else lo >> 1)
+                                                 else lo_ >> 1)
                     pp[w] = hns | (M32 ^ (D0[w] | hps))
                     pm[w] = hps & D0[w]
             if track:
                 n = min(max(qlen - rbeg, 0), bw)
                 part = [sum(_popc(pp[w] & _lowmask(w, n))
                             - _popc(pm[w] & _lowmask(w, n))
-                            for w in range(wp * WL * K, (wp + 1) * WL * K))
-                        for wp in range(nwarp)]
+                            for w in range(wp * WL * KT, (wp + 1) * WL * KT))
+                        for wp in range(C * nwarp)]
                 sbeg_prev = sbeg
             out["pm"][b, i] = pm[:NW]
             out["pp"][b, i] = pp[:NW]
@@ -205,6 +245,13 @@ def edit_block_model(g, ops, WL, K):
         out["scal"][b] = (sbeg, smin, ry, rbeg_f)
     return {k: torch.as_tensor(v.view(np.int32) if v.dtype == np.uint32
                                else v) for k, v in out.items()}
+
+
+def edit_block_model(g, ops, WL, K):
+    """The block row's raw outputs for the operands ops (numpy on the
+    CPU), warps of WL lanes, K words a thread: the cluster row of one
+    block."""
+    return edit_cluster_model(g, ops, WL, K, -(-g.NW // (WL * K)), 1)
 
 
 def _edit_ops(qs, ts, mode, nw, banded, traj=None):
@@ -256,6 +303,10 @@ def _b_case(name, mode, nw):
         return ([same, np.full(bw - 30, 2, np.uint8), one],
                 [same[:70].copy(), np.full(60, 2, np.uint8),
                  np.full(40, 1, np.uint8)], False, None)
+    if name == "minima":   # row-score bounds qlen - rbeg in several blocks
+        qs = [_rand(rng, bw * k // 4 - 5) for k in (1, 2, 3)]
+        return qs, [np.concatenate([q[:40], _rand(rng, 20)]) for q in qs], \
+            False, None
     if name == "banded":   # odd rbeg % 32, rows with movx > 0
         return ([_rand(rng, bw + 300 + 17 * k) for k in range(2)],
                 [_rand(rng, 90 - 11 * k) for k in range(2)], True, None)
@@ -286,6 +337,45 @@ def test_edit_block_model_matches_plain(case):
     if traj is not None:
         assert ops.movxs.numpy().max() >= 32 * nw
     got = edit_block_model(g, ops, WL, K)
+    want = KE.forward_plain(g, ops)
+    for b, n in enumerate(ops.tlen.tolist()):
+        for f in ("pm", "pp", "sbeg"):
+            assert torch.equal(got[f][b, :n], want[f][b, :n]), (f, b)
+    for f in ("fin_pm", "fin_pp", "scal"):
+        assert torch.equal(got[f], want[f]), f
+
+
+# the cluster row: (WL, K, warps, C, pieces, NW), the band across 2-3
+# blocks, the last two the sweep (2 and 3 pieces a thread)
+CL_GEOS = [(4, 1, 2, 3, 1, 21), (4, 2, 2, 2, 1, 30), (4, 1, 2, 3, 2, 40),
+           (4, 2, 1, 2, 3, 37)]
+CL_CASES = [(name, mode) + geo
+            for name, modes in (("full", (0, 1, 2)), ("carry", (0, 1, 2)),
+                                ("banded", (0, 1, 2)), ("jumpy", (0, 2)),
+                                ("minima", (1, 2)))
+            for mode in modes for geo in CL_GEOS]
+
+
+@pytest.mark.parametrize("case", CL_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_edit_cluster_model_matches_plain(case):
+    """The cluster row's model against the plain version: a carry through
+    every block (carry), band shifts whose words cross blocks and full
+    resets (jumpy), row-score bounds in different blocks (minima)."""
+    name, mode, WL, K, nwarp, C, pieces, nw = case
+    qs, ts, banded, traj = _b_case(name, mode, nw)
+    g, ops = _edit_ops(qs, ts, mode, nw, banded, traj)
+    S = WL * nwarp * K * pieces
+    assert C * S >= nw > (C - 1) * S
+    if name == "jumpy":   # shifts of more than a block, and full resets
+        live = np.arange(g.T)[:, None] < ops.tlen.numpy()[None]
+        mv = ops.movxs.numpy()[live]
+        assert ((mv > 32 * S) & (mv < 32 * nw)).any() or \
+            ((mv > 32 * 2) & (mv < 32 * nw)).any()
+        assert mv.max() >= 32 * nw
+    if name == "minima":
+        assert len({(int(q) - 1) // (32 * S) for q in ops.qlen}) >= 2
+    got = edit_cluster_model(g, ops, WL, K, nwarp, C, pieces)
     want = KE.forward_plain(g, ops)
     for b, n in enumerate(ops.tlen.tolist()):
         for f in ("pm", "pp", "sbeg"):
@@ -469,7 +559,7 @@ def test_pedit_block_model_matches_plain(case):
 def test_edit_block_geometry(nw):
     geo = _cuda.edit_block_geometry(nw)
     if nw > _cuda.EDIT_BLOCK_MAX_NW:
-        assert geo is None and _cuda.edit_design(nw) == "segmented"
+        assert geo is None and _cuda.edit_design(nw) == "cluster"
         return
     K, nwarp = geo
     assert _cuda.edit_design(nw) == "block"
@@ -511,3 +601,45 @@ def test_pedit_block_geometry(bw, want):
     assert NT * K >= bw >= NT * (K - 2)     # past the band: the last word
     assert 2 * _ring_size(bw) <= _cuda.SMEM_MAX
     assert bw <= _cuda.PEDIT_MAX_BW
+
+
+@pytest.mark.parametrize("nw", [64, 128, 129, 513, 2049, 4097, 4192, 8192,
+                                8193, 16384, 32768, 32769, 65536, 65537,
+                                100000, 1 << 20])
+@pytest.mark.parametrize("maxc", [_cuda.EDIT_CLUSTER_MAX,
+                                  _cuda.EDIT_CLUSTER_MAX_NP])
+@pytest.mark.parametrize("pairs", [1, 2, 64, 256])
+def test_edit_cluster_geometry(nw, maxc, pairs):
+    K, nwarp, C, pieces = _cuda.edit_cluster_geometry(nw, maxc, pairs)
+    S = 32 * nwarp * K * pieces
+    full = 32 * _cuda.EDIT_BLOCK_MAXW * 8
+    assert _cuda.edit_cluster_geometry_ok(nw, K, nwarp, C, pieces)
+    assert C <= maxc and C * S >= nw > (C - 1) * S
+    if nw <= full * maxc:              # in registers
+        assert pieces == 1
+        C0 = max(2, -(-nw // full))
+        want = max(C0, min(maxc, 132 // pairs,
+                           -(-nw // _cuda.EDIT_CLUSTER_WORDS)))
+        assert (K, nwarp) == _cuda.edit_block_geometry(-(-nw // want))
+        assert C == -(-nw // (32 * nwarp * K)) <= want
+        if pairs >= 66 and nw > 128:   # the SMs leave two blocks a pair
+            assert C == C0
+    else:                              # the sweep
+        assert (K, nwarp) == (8, _cuda.EDIT_SWEEP_MAXW)
+        assert pieces == -(-nw // (maxc * 32 * nwarp * 8)) >= 2
+    if nw > _cuda.EDIT_BLOCK_MAX_NW:
+        assert _cuda.edit_design(nw) == "cluster"
+
+
+@pytest.mark.parametrize("nw,geo,ok", [
+    (4192, (8, 9, 2, 1), True), (4192, (4, 11, 3, 1), True),
+    (4192, (4, 5, 7, 1), True), (4192, (4, 9, 4, 1), True),
+    (4192, (8, 9, 1, 1), False), (4192, (4, 9, 8, 1), False),
+    (4192, (8, 16, 3, 1), False), (4192, (16, 9, 2, 1), False),
+    (4192, (8, 17, 1, 1), False), (100000, (8, 8, 13, 4), True),
+    (100000, (8, 16, 13, 2), False), (100000, (8, 16, 16, 2), False),
+    (100000, (4, 16, 16, 4), False), (100000, (8, 16, 17, 1), False),
+    (100000, (8, 16, 8, 4), False), (2049, (4, 9, 2, 1), True),
+    (2049, (8, 0, 2, 1), False), (2049, (8, 9, 2, 0), False)])
+def test_edit_cluster_geometry_ok(nw, geo, ok):
+    assert _cuda.edit_cluster_geometry_ok(nw, *geo) is ok

@@ -8,7 +8,9 @@ kernel's plain version. Cases: clean joins, a stated overlap= of half the
 real one (the 4x retry), a pair with no true overlap (6 N inserted), a
 piece shorter than the window, N in the consensus side of later joins,
 -o, and the defaults against the same values given as flags. A piece
-with an N in the window its join aligns is refused by both.
+with an N in the window its join aligns is refused by both; an N inside a
+run of inserted bases of the consensus is accepted by both unless it is
+the base the traceback scores (the run's last, every base at -O 0).
 """
 import contextlib
 import io
@@ -185,9 +187,59 @@ def test_cat_refuses_n_on_the_join_path(tmp_path, capsys):
 
 
 def test_walked_query_covers_the_path():
-    """The query positions the refusal checks: every base of M and I ops
-    and the base before each D op."""
+    """The query positions the refusal checks: every base of M ops, the
+    last base of each I op (every base without a gap open cost) and the
+    base before each D op."""
     from bsalign_tpu_torch.cigar import AlnResult
     rs = AlnResult(qb=3, qe=12)
     cg = [(4 << 4) | 0, (2 << 4) | 2, (2 << 4) | 1, (3 << 4) | 0]
-    assert TCAT._walked_query(rs, cg) == [3, 4, 5, 6, 6, 7, 8, 9, 10, 11]
+    assert TCAT._walked_query(rs, cg) == [3, 4, 5, 6, 6, 8, 9, 10, 11]
+    assert TCAT._walked_query(rs, cg, False) == [3, 4, 5, 6, 6, 7, 8, 9,
+                                                 10, 11]
+
+
+def _jax_cli(argv):
+    """(exit code, stdout) of `bsalign_tpu.cli cat argv`, run in process:
+    the IndexError with which the JAX package's oracle refuses a join ends
+    that CLI with exit code 1 and no output."""
+    from bsalign_tpu import cli as JCLI
+    try:
+        return _run(JCLI.main_cat, argv)
+    except IndexError:
+        return 1, ""
+
+
+# a run of 5 bases inserted into the consensus inside the next join's
+# overlap, one of them N: accepted by both where the traceback consumes
+# the N unscored, refused by both where it scores it (the run's last base;
+# at -O 0 every base, each a run of its own)
+@pytest.mark.parametrize("gaps,npos", [((), 0), ((), 2), ((), 4),
+                                       (("-O", "0"), 2)])
+def test_cat_n_in_an_insertion_run(tmp_path, capsys, gaps, npos):
+    p, _ = _pieces(11, [(0, 300), (200, 500)], err=0.0)
+    s0 = "".join(BASES[x] for x in p[0])
+    run = "GTCAT"
+    s0 = s0[:260] + run[:npos] + "N" + run[npos + 1:] + s0[260:]
+    argv = ["-W", "100", *gaps, _fasta(tmp_path / "ins.fa", [s0, p[1]])]
+    rj, oj = _jax_cli(argv)
+    rt, ot = _run(TCLI.main, ["cat", "--device", "cpu"] + argv)
+    assert (rt, ot) == (rj, oj)
+    accepted = not gaps and npos < 4
+    assert rt == (0 if accepted else 1)
+    if accepted:
+        assert ot.startswith(">cns len=")
+        # the join's one I op holds the N, away from its last base
+        q = np.array(["ACGTN".index(c) for c in s0[-100:]], np.uint8)
+        [(rs, cg)] = TCAT.align_batch([q], [p[1][:100]], TCAT.MODE_OVERLAP,
+                                      100 + 12, TCAT.B8.set_score_matrix(
+                                          2, -6), -3, -2, 0, 0, device="cpu")
+        x, ins = rs.qb, []
+        for c in cg:
+            if c & 0xF != 2:
+                if c & 0xF == 1:
+                    ins.append((x, x + (c >> 4)))
+                x += c >> 4
+        n = int(np.flatnonzero(q == 4)[0])
+        assert any(a <= n < b - 1 for a, b in ins), (ins, n)
+    else:
+        assert "'w1'" in capsys.readouterr().err

@@ -526,13 +526,13 @@ def test_edit_kernel_band_widths(nw, mode, cuda_device):
 
 
 # bands past 512 words against the plain version, with banded trajectories
-# (rows with movx > 0): the block row (the default to NW 4,096) and the
-# segmented row forced, at NW 1,024 also with the segmented row's state rows
-# in device memory (the shared limit forced down)
+# (rows with movx > 0): the row the main path takes (the block row to NW
+# 4,096, the cluster row past it) and the cluster row forced in its default
+# geometry, at NW 1,024 also in the sweep (2 pieces a thread, its state
+# rows in device memory)
 @pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_OVERLAP, MODE_EXTEND])
-@pytest.mark.parametrize("nw", [513, 640, 1024])
-def test_edit_segmented_kernel_matches_plain(nw, mode, cuda_device,
-                                             monkeypatch):
+@pytest.mark.parametrize("nw", [513, 640, 1024, 4097, 4192, 8192])
+def test_edit_cluster_kernel_matches_plain(nw, mode, cuda_device):
     from bsalign_tpu_torch.ops import _cuda
     rng = np.random.default_rng(11 * nw + mode)
     bw = 32 * nw
@@ -543,18 +543,19 @@ def test_edit_segmented_kernel_matches_plain(nw, mode, cuda_device,
     live = torch.arange(g.T, device=cuda_device).view(-1, 1) < ops.tlen
     if mode != MODE_OVERLAP:
         assert int(ops.movxs[live].max()) > 0
-    before = _cuda.edit_block_launches
+    counts = (_cuda.edit_block_launches, _cuda.edit_cluster_launches)
     _assert_edit_same(g, ops)
-    assert _cuda.edit_block_launches == before + 1
-    _assert_edit_same(g, ops, design="segmented")
+    blk = nw <= _cuda.EDIT_BLOCK_MAX_NW
+    assert (_cuda.edit_block_launches - counts[0],
+            _cuda.edit_cluster_launches - counts[1]) == (blk, not blk)
+    _assert_edit_same(g, ops, design="cluster")
     if nw == 1024:
-        monkeypatch.setattr(_cuda, "SMEM_MAX", 16 * nw - 1)
-        _assert_edit_same(g, ops, design="segmented")
+        _assert_edit_same(g, ops, design="cluster", geometry=(8, 1, 2, 2))
 
 
 # the block row at each boundary of its geometry (the warp count changes
 # past NW 640, 2,048 is 16 warps of 4 words, 2,049 the first of 8 words,
-# 4,096 the last the block row takes) and the segmented row past it (4,097),
+# 4,096 the last the block row takes) and the cluster row past it (4,097),
 # global with a banded trajectory; queries past 64 kb read their Eq planes
 # from device memory
 @pytest.mark.parametrize("nw", [640, 641, 2048, 2049, 4096, 4097])
@@ -568,14 +569,14 @@ def test_edit_block_row_geometry_boundaries(nw, cuda_device):
     g, ops = _edit_operands(qs, ts, MODE_GLOBAL, bw, True, cuda_device)
     geo = _cuda.edit_block_geometry(nw)
     assert (geo is None) == (nw > _cuda.EDIT_BLOCK_MAX_NW)
-    counts = (_cuda.edit_block_launches, _cuda.edit_seg_launches)
+    counts = (_cuda.edit_block_launches, _cuda.edit_cluster_launches)
     _assert_edit_same(g, ops)
     assert (_cuda.edit_block_launches - counts[0],
-            _cuda.edit_seg_launches - counts[1]) == ((0, 1) if geo is None
-                                                     else (1, 0))
+            _cuda.edit_cluster_launches - counts[1]) == ((0, 1) if geo is None
+                                                         else (1, 0))
     if geo is not None:
         assert 32 * geo[0] * geo[1] >= nw and geo[1] <= _cuda.EDIT_BLOCK_MAXW
-        _assert_edit_same(g, ops, design="segmented")
+        _assert_edit_same(g, ops, design="cluster")
 
 
 # the block row at edit -W 0's band on 24 kb reads (NW 752, 6 warps) in
@@ -590,9 +591,9 @@ def test_edit_block_row_nw752_matches_plain(mode, cuda_device):
     _assert_edit_same(g, ops)
 
 
-# design= forces either row where both exist: register and block at NW 64
-# and 512, both equal to the plain version
-@pytest.mark.parametrize("design", ["register", "block"])
+# design= forces any row where it exists: register, block and cluster at
+# NW 64 (a cluster of one block) and 512, each equal to the plain version
+@pytest.mark.parametrize("design", ["register", "block", "cluster"])
 @pytest.mark.parametrize("nw", [64, 512])
 def test_edit_design_forced_matches_plain(nw, design, cuda_device):
     from bsalign_tpu_torch.ops import _cuda
@@ -622,6 +623,61 @@ def test_edit_block_row_geometry_forced_matches_plain(geo, cuda_device):
     for bad in ((4, 11), (16, 3), (8, _cuda.EDIT_BLOCK_MAXW + 1)):
         with pytest.raises(ValueError, match="no 'block' row"):
             _cuda.edit_rows(g, ops, design="block", geometry=bad)
+
+
+# the edit cluster row in a geometry forced at NW 4,192: 2 blocks of 9 warps
+# of 8 words, 3 of 11 of 4, 7 of 5 of 4, the sweep (2 blocks of 5 warps of
+# 2 pieces of 8 words); geometries short of the band, with an idle block,
+# of another K or past the limits are refused
+@pytest.mark.parametrize("geo", [(8, 9, 2), (4, 11, 3), (4, 5, 7),
+                                 (8, 5, 2, 2)])
+def test_edit_cluster_geometry_forced_matches_plain(geo, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    nw = 4192
+    rng = np.random.default_rng(sum(geo))
+    qs = [rng.integers(0, 4, 32 * nw - 50 + 9 * k).astype(np.uint8)
+          for k in range(2)]
+    ts = [q[3000:3200 + 13 * k].copy() for k, q in enumerate(qs)]
+    g, ops = _edit_operands(qs, ts, MODE_EXTEND, 32 * nw, False, cuda_device)
+    _assert_edit_same(g, ops, design="cluster", geometry=geo)
+    for bad in ((8, 9, 1), (4, 9, 8), (16, 9, 2), (8, 17, 1),
+                (4, 5, 4, 2), (8, 9, 2, 2)):
+        with pytest.raises(ValueError, match="no 'cluster' row"):
+            _cuda.edit_rows(g, ops, design="cluster", geometry=bad)
+
+
+# past the cluster's registers (NW 65,537: the sweep at the portable size,
+# or 16 blocks where the card takes them), banded with rows that shift,
+# and the sweep forced against the registers at NW 32,768; few rows
+@pytest.mark.parametrize("mode", [MODE_GLOBAL, MODE_EXTEND])
+def test_edit_cluster_sweep_matches_plain(mode, cuda_device):
+    from bsalign_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(65537 + mode)
+    nw = 65537
+    qs = [rng.integers(0, 4, 32 * nw + 900).astype(np.uint8)]
+    ts = [rng.integers(0, 4, 40).astype(np.uint8)]
+    g, ops = _edit_operands(qs, ts, mode, 32 * nw, True, cuda_device)
+    before = _cuda.edit_cluster_launches
+    _assert_edit_same(g, ops)
+    assert _cuda.edit_cluster_launches == before + 1
+    nw = 32768
+    qs = [rng.integers(0, 4, 32 * nw - 100).astype(np.uint8)]
+    ts = [qs[0][5000:5040].copy()]
+    g, ops = _edit_operands(qs, ts, mode, 32 * nw, False, cuda_device)
+    _assert_edit_same(g, ops, design="cluster", geometry=(8, 8, 8, 2))
+
+
+def test_edit_cluster_occupancy_and_floor(cuda_device):
+    """The cluster sizes the card takes (2 to 8 always; 16 where the card
+    takes that non-portable size, which edit_cluster_max reports) and the
+    exchange's probe, which runs every row."""
+    from bsalign_tpu_torch.ops import _cuda
+    for C in (2, 4, 8):
+        assert _cuda.edit_cluster_occupancy(8, 16, C) > 0
+        out = _cuda.edit_cluster_floor(C, 2, 3, 100, cuda_device)
+        assert out.tolist() == [100] * (3 * C)
+    n16 = _cuda.edit_cluster_occupancy(8, 16, 16)
+    assert _cuda.edit_cluster_max(cuda_device) == (16 if n16 > 0 else 8)
 
 
 # the pedit block row in every geometry it can take at bw 4,094 (4 to 32
