@@ -1,10 +1,12 @@
 """Host C++ of the port, bound with ctypes.
 
 The library is `rowops.cpp` in this directory, the port's own copy of the
-JAX package's host C++, kept unchanged so that the two packages' CIGARs,
-MSAs and consensus stay byte-identical. It holds the tracebacks of
-`align` (the codes walker `bsa_decode_codes`, its resumable row-chunk
-form `bsa_walk_codes_chunk` and the planes walk `bsa8_backcal`) and the
+JAX package's host C++, its arithmetic kept unchanged so that the two
+packages' CIGARs, MSAs and consensus stay byte-identical. It holds the
+tracebacks of `align` (the codes walker `bsa_decode_codes`, its resumable
+row-chunk form `bsa_walk_codes_chunk` and the planes walk
+`bsa8_backcal`), the non-global final-row maximum of a batch
+(`bsa_row_max_batch`, the tie-break tree POA's forward uses) and the
 POA engine's graph, row-DP, MSA,
 consensus and pedit-traceback entry points (wrapped in `rowops.py`). It is
 built with `g++ -O3 -fPIC` and linked with `g++ -shared` into this
@@ -39,6 +41,7 @@ _SIGNATURES = {
     "bsa_walk_codes_chunk": (
         [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _L, _L, _L,
          ctypes.c_int, ctypes.c_int, _P, _P, _L], _L),
+    "bsa_row_max_batch": ([_P, _P, _L, _L, _P, _P], None),
     "bsa_align_rd_core": (
         [_P] * 12 + [_L] + [_P] * 8 + [_L] * 15 + [_P, _P, _L], _L),
     "bsa_pedit_forward": (

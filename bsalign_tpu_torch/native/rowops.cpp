@@ -1885,6 +1885,15 @@ static void arena_row_max(const i8 *aus, const i64 *aub, long W, long slot,
     *score_out = max_score;
 }
 
+// row_max over a batch of final rows laid out as slots: us [B, W, WSZ]
+// int8, ubegs [B, WSZ + 1] int64; pair b's natural position and score
+// land in pos_out[b] and score_out[b]
+extern "C" void bsa_row_max_batch(const i8 *us, const i64 *ub, long W,
+                                  long B, i64 *score_out, long *pos_out) {
+    for (long b = 0; b < B; b++)
+        arena_row_max(us, ub, W, b, score_out + b, pos_out + b);
+}
+
 extern "C" long bsa_align_rd_core(
     // node arrays
     i32 *nd_mpos, i32 *nd_vst, i32 *nd_nct, i32 *nd_mmidx,

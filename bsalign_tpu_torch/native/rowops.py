@@ -80,6 +80,24 @@ def backcal(qseq, tseq, init_row, us_p, es_p, qs_p, ub_p, begs_p, b,
     return [int(x) for x in cg[:n]]
 
 
+def row_max_batch(final_us, final_ubegs):
+    """oracle.banded8.row_max of every pair of a batch in one native call:
+    final_us [W, WS, B] (cast to int8 as astype casts, wrapping) and
+    final_ubegs [WS + 1, B]. Returns (pos, max_score), two int64 arrays of
+    length B."""
+    W, ws, B = final_us.shape
+    if ws != WS or W < 1 or final_ubegs.shape != (WS + 1, B):
+        raise ValueError(f"final rows {final_us.shape} with anchors "
+                         f"{final_ubegs.shape}")
+    us = final_us.astype(np.int8).transpose(2, 0, 1).copy()
+    ub = np.ascontiguousarray(final_ubegs.T, np.int64)
+    pos = np.zeros(B, np.int64)
+    score = np.zeros(B, np.int64)
+    rowops_lib().bsa_row_max_batch(us.ctypes.data, ub.ctypes.data, W, B,
+                                   score.ctypes.data, pos.ctypes.data)
+    return pos, score
+
+
 WK_NST = 12        # per-pair walk-state slots (rowops.cpp WK_* enum)
 WK_QB, WK_TB, WK_PM, WK_DJ, WK_CG, WK_NCG = range(6)
 WK_MAT, WK_MIS, WK_INS, WK_DEL, WK_ALN, WK_DONE = range(6, 12)

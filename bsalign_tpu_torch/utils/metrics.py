@@ -1,14 +1,16 @@
 """Telemetry: cell-updates/s counters, leveled logging and the profiler
 trace (port of bsalign_tpu.utils.metrics).
 
-The drivers report work through a process-wide registry under the same
-counter names as the JAX package: `banded8_fwd` (DP cells, launch to
-results on the host), `e2e_fetch` (bytes copied device to host),
-`e2e_traceback` (pairs walked) and `edit_fwd` (edit DP cells, sum of
-target lengths x band, operands to results on the host). Verbosity
-follows the CLI's repeated -v (BSA_VERBOSE overrides). `profile_trace`
-writes a torch.profiler Chrome trace of a region when BSA_PROFILE_DIR is
-set.
+The drivers report work through a process-wide registry under the JAX
+package's counter names: `banded8_fwd` (DP cells, launch to results on
+the host), `e2e_fetch` (bytes copied device to host), `e2e_traceback`
+(pairs walked) and `edit_fwd` (edit DP cells, sum of target lengths x
+band, operands to results on the host); and two of the port's own:
+`e2e_rowmax` (pairs whose final row the non-global row maximum scanned,
+one add a batch) and `e2e_rowmax_taken` (pairs whose end that maximum
+moved to the final row; no seconds). Verbosity follows the CLI's
+repeated -v (BSA_VERBOSE overrides). `profile_trace` writes a
+torch.profiler Chrome trace of a region when BSA_PROFILE_DIR is set.
 """
 from __future__ import annotations
 

@@ -1696,7 +1696,7 @@ def main() -> int:
                                 int(m_.max()), int(m_.min()),
                                 scores_only=True, device=dev)(
                 qpad, qlens, tpad, tlens, P._mtx5(m_), rby, us, es, q0, ub)
-            base = P._base_results(fr, MODE_OVERLAP, bw // 16, tlens)
+            base = P._base_results(fr, MODE_OVERLAP, tlens)
             for b, (rs, _) in enumerate(res):
                 got = (base[b].score, base[b].qe + 1, base[b].te + 1)
                 if got != (rs.score, rs.qe, rs.te):
