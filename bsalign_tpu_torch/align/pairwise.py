@@ -234,7 +234,7 @@ def _launch_group(qseqs, tseqs, mode, bandwidth, mtx, gapo1, gape1, gapo2,
             return lambda: _twopass_batch(
                 T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
                 gape2, smax, smin, qseqs, tseqs, fwd_args, Tc, fwd_cells,
-                t_launch, device)
+                device)
         res0 = _forward_chunked(T, W, mode, piecewise, gapo1, gape1, gapo2,
                                 gape2, smax, smin, *fwd_args, Tc=Tc,
                                 codes=use_codes, device=device)
@@ -332,7 +332,7 @@ def _base_results(res, mode, tlens):
 
 def _twopass_batch(T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
                    gape2, smax, smin, qseqs, tseqs, fwd_args, Tc, fwd_cells,
-                   t_launch, device):
+                   device):
     """Two-pass long-read alignment: a scores-only chunked forward keeps
     each chunk's entry state (planes, anchors and registers, O(BW*B) per
     chunk), then the chunks are re-forwarded in reverse order emitting
@@ -343,6 +343,7 @@ def _twopass_batch(T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
     device DP overlaps the host traceback."""
     (qpad, qlens, tpad, tlens, mtx5, rby, us0, es0, qs0, ub0) = fwd_args
     B = len(qseqs)
+    t_group = time.time()
 
     def fwd(c0, c1, **kw):
         return K8.make_forward(c1 - c0, W, mode, piecewise, gapo1, gape1,
@@ -360,9 +361,10 @@ def _twopass_batch(T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
             ub, init_reg=reg, row0=c0)
         us, es, qs = (res.final_planes + [None, None])[:3]
         ub, reg = res.final_ubegs, res.final_reg
-    metrics.add("banded8_fwd", fwd_cells, time.time() - t_launch)
-
+    # each chunk's unpack waited for its copies to the host, the last one
+    # for the scores: pass 1 ends when _base_results has read them
     rss = _base_results(res, mode, tlens)
+    metrics.add("twopass_score", fwd_cells, time.time() - t_group)
     init_row = O.row_init(mode, bandwidth, smax, smin, gapo1, gape1, gapo2,
                           gape2)
     init_eo = _init_eo(init_row, piecewise, gapo1, gape1, bandwidth)
@@ -379,17 +381,26 @@ def _twopass_batch(T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
     cg_buf = np.zeros((B, 2 * Tc + 64), np.uint32)
     parts = [[] for _ in range(B)]
 
+    walk_s = 0.0
+
     def walk_chunk(pend):
+        nonlocal walk_s
         get, c0, c1, regk = pend
-        with metrics.timed("banded8_refwd", float(B) * (c1 - c0) * bandwidth):
-            r = get()
-            codes_c = np.ascontiguousarray(r.planes.codes.numpy())
-            begs_c = np.ascontiguousarray(r.planes.begs.numpy(), np.int32)
+        t0 = time.time()
+        r = get()
+        t1 = time.time()
+        codes_c = np.ascontiguousarray(r.planes.codes.numpy())
+        begs_c = np.ascontiguousarray(r.planes.begs.numpy(), np.int32)
+        t2 = time.time()
+        metrics.add("banded8_refwd", float(B) * (c1 - c0) * bandwidth,
+                    t2 - t0)
+        metrics.add("e2e_fetch", codes_c.nbytes + begs_c.nbytes, t2 - t1)
         beg_prev = (np.zeros(B, np.int32) if regk is None else
                     np.ascontiguousarray(np.asarray(regk)[0], np.int32))
         NR.walk_codes_chunk(qflat, qoffs, tflat, toffs, codes_c, begs_c,
                             beg_prev, init_eo, c0, c1, is_overlap, bandwidth,
                             st, cg_buf)
+        walk_s += time.time() - t2
         for b in range(B):
             n = int(st[b, NR.WK_NCG])
             if n:
@@ -412,6 +423,7 @@ def _twopass_batch(T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
             walk_chunk(pend)
         pend = (get, c0, c1, regk)
     walk_chunk(pend)
+    metrics.add("e2e_traceback", B, walk_s)
 
     out = []
     for b in range(B):
@@ -431,4 +443,5 @@ def _twopass_batch(T, W, mode, bandwidth, piecewise, gapo1, gape1, gapo2,
         words = (np.concatenate(parts[b]) if parts[b]
                  else np.zeros(0, np.uint32))
         out.append((rs, [int(x) for x in words[::-1]]))
+    metrics.add("twopass_launch", B, time.time() - t_group)
     return out

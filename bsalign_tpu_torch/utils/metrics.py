@@ -8,7 +8,16 @@ the host), `e2e_fetch` (bytes copied device to host), `e2e_traceback`
 band, operands to results on the host); and two of the port's own:
 `e2e_rowmax` (pairs whose final row the non-global row maximum scanned,
 one add a batch) and `e2e_rowmax_taken` (pairs whose end that maximum
-moved to the final row; no seconds). Verbosity follows the CLI's
+moved to the final row; no seconds). In the two-pass long-read mode
+(`align/pairwise._twopass_batch`) `e2e_fetch` counts each chunk's codes
+and band starts, `e2e_traceback` the resumable walker's host seconds
+(one add a launch group, cells = pairs), and three more are its own:
+`twopass_score` (DP cells, host seconds from pass 1's first launch until
+its scores are read into results, one add a group; it takes the place
+of `banded8_fwd` there), `banded8_refwd` (DP cells of a re-forwarded
+chunk, the host's wait on it and its fetch, one add a chunk) and
+`twopass_launch` (pairs of the group, its wall seconds, one add a
+group). Verbosity follows the CLI's
 repeated -v (BSA_VERBOSE overrides). `profile_trace` writes a
 torch.profiler Chrome trace of a region when BSA_PROFILE_DIR is set.
 """

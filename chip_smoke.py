@@ -2717,10 +2717,10 @@ def main() -> int:
     for nm, c in sorted(ctr.items()):
         print(f"phase11 counter {nm}: {c.cells:.6g} units in "
               f"{c.seconds:.4f}s over {c.calls} calls")
-    walk_s = t_two - sum(c.seconds for c in ctr.values())
-    print(f"phase11 pass 1 (scores only) {ctr['banded8_fwd'].seconds:.3f}s, "
-          f"pass 2 re-forward waits {ctr['banded8_refwd'].seconds:.3f}s, "
-          f"walk and the rest {walk_s:.3f}s")
+    print(f"phase11 pass 1 (scores only) "
+          f"{ctr['twopass_score'].seconds:.3f}s, pass 2 re-forward waits "
+          f"{ctr['banded8_refwd'].seconds:.3f}s, "
+          f"walk {ctr['e2e_traceback'].seconds:.3f}s")
     if cnt_two != dict(codes=n_chunks, planes=0, none=n_chunks):
         return fail(f"phase 11: two-pass launches {cnt_two}, expected "
                     f"{n_chunks} none and {n_chunks} codes")
